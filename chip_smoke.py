@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's multiply path once on the GPU.
+"""Drive the PyTorch/CUDA port's multiply and factorization paths once on
+the GPU.
 
     python3 chip_smoke.py [--seed N]
 
 Needs one NVIDIA GPU (built for an H100, sm_90a) and ``nvcc``; imports torch
 and numpy only.  It builds the CUDA kernels from ``m4ri_tpu_torch/csrc``,
-holds each against its plain PyTorch version on the card (equality of packed
-words: GF(2) is exact, the tolerance is 0), then drives ``mul`` / ``addmul``
-/ squaring through the public entry points at n=4096 (the size the JAX
-package's bench times) and n=16384 (where Strassen engages), with the
-launch counters showing that the kernels ran.  One JSON object per phase;
-the ``kernels`` line, the card's name and power limit, and last of all
+holds each of the six against its plain PyTorch version on the card
+(equality of packed words and index arrays: GF(2) is exact, the tolerance is
+0), then drives the public entry points: ``mul`` / ``addmul`` / squaring at
+n=4096 (the size the JAX package's bench times) and n=16384 (where Strassen
+engages); ``ple`` / ``rank`` / ``block_factor`` at n=16384 and n=32768 (the
+wide panel), on inputs whose windows go deficient, and on the reference C
+library's golden vectors, each held to the plain engine on the card.  The
+launch counters show that the kernels ran.  One JSON object per phase; the
+``kernels`` line, the card's name and power limit, and last of all
 ``{"ok": true, "device": {...}}``.  Any mismatch, build failure or launch
 error ends the run with a non-zero exit code and without that last line.
 """
@@ -19,6 +23,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import pathlib
 import statistics
 import subprocess
@@ -34,10 +39,18 @@ if not torch.cuda.is_available():
 
 import m4ri_tpu_torch as m4
 from m4ri_tpu_torch.benches.probe_mma import probe as probe_mma
-from m4ri_tpu_torch.core.bitmatrix import BitMatrix
-from m4ri_tpu_torch.ops import _build
+from m4ri_tpu_torch.core.bitmatrix import BitMatrix, mask_padding
+from m4ri_tpu_torch.models import ple as ple_mod
+from m4ri_tpu_torch.ops import _build, hopper_panel
 from m4ri_tpu_torch.ops.hopper_mul import gf2_mul_hopper, gf2_mul_plain
 from m4ri_tpu_torch.ops.hopper_mul2 import gf2_mul_hopper_v2
+from m4ri_tpu_torch.ops.hopper_panel import panel_loop_hopper, panel_loop_plain
+from m4ri_tpu_torch.ops.hopper_post import panel_post_hopper, panel_post_plain
+from m4ri_tpu_torch.ops.hopper_schur import (TILE_ROWS, TILE_WORDS,
+                                             gf2_schur_update_dyn_hopper,
+                                             gf2_schur_update_hopper,
+                                             gf2_schur_update_plain)
+from m4ri_tpu_torch.utils import config as config_mod
 from m4ri_tpu_torch.utils.config import get_config
 from m4ri_tpu_torch.utils.rng import GlibcRandom, reference_random_data
 
@@ -59,7 +72,24 @@ KERNELS = {
     "gf2_mul_hopper_v2": dict(
         fn=gf2_mul_hopper_v2, source="m4ri_tpu_torch/csrc/gf2_mul_hopper_v2.cu",
         replaces="m4ri_tpu/ops/pallas_mul2.py:153", shape=(4096, 4096, 4096)),
+    "gf2_schur_update_hopper": dict(
+        fn=gf2_schur_update_hopper,
+        source="m4ri_tpu_torch/csrc/gf2_schur_hopper.cu",
+        replaces="m4ri_tpu/ops/pallas_schur.py:93"),
+    "gf2_schur_update_dyn_hopper": dict(
+        fn=gf2_schur_update_dyn_hopper,
+        source="m4ri_tpu_torch/csrc/gf2_schur_hopper.cu",
+        replaces="m4ri_tpu/ops/pallas_schur.py:255"),
+    "panel_loop_hopper": dict(
+        fn=panel_loop_hopper, source="m4ri_tpu_torch/csrc/gf2_panel_hopper.cu",
+        replaces="m4ri_tpu/ops/pallas_panel.py:168"),
+    "panel_post_hopper": dict(
+        fn=panel_post_hopper, source="m4ri_tpu_torch/csrc/gf2_post_hopper.cu",
+        replaces="m4ri_tpu/ops/pallas_post.py:99"),
 }
+GEMMS = ("gf2_mul_hopper", "gf2_mul_hopper_v2")
+SOURCES = ["gf2_mul_hopper", "gf2_mul_hopper_v2", "gf2_schur_hopper",
+           "gf2_panel_hopper", "gf2_post_hopper", "probe_mma"]
 CHECK_SHAPES = [(1, 1, 1), (31, 32, 33), (65, 97, 129), (300, 1100, 4200),
                 (512, 1000, 4096), (300, 2100, 8200), (8192, 512, 8192),
                 (4096, 2048, 4096), (4096, 4096, 4096)]
@@ -127,8 +157,12 @@ def bound(m: int, k: int, n: int) -> dict:
             "bound_by": "bytes" if t_bytes > t_ops else "operations"}
 
 
-def counts() -> dict:
-    return {name: spec["fn"].launches for name, spec in KERNELS.items()}
+def counts(names=None) -> dict:
+    return {name: KERNELS[name]["fn"].launches for name in names or KERNELS}
+
+
+def gemm_counts() -> dict:
+    return counts(GEMMS)
 
 
 def zero_counts() -> None:
@@ -149,7 +183,7 @@ def phase_device() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     t0 = time.time()
-    logs = _build.build(["gf2_mul_hopper", "gf2_mul_hopper_v2", "probe_mma"])
+    logs = _build.build(SOURCES)
     build_s = time.time() - t0
     probe = probe_mma()
     usage = {name: [ln.strip() for ln in log.splitlines() if "Used" in ln]
@@ -166,7 +200,8 @@ def phase_kernels(rng) -> dict:
     """Each kernel against its plain version, then its time at the shapes
     the main path gives it."""
     report = {}
-    for name, spec in KERNELS.items():
+    for name in GEMMS:
+        spec = KERNELS[name]
         fn, bad, checked = spec["fn"], 0, []
         for (m, k, n) in CHECK_SHAPES:
             a, b = packed(rng, m, k), packed(rng, k, n)
@@ -227,6 +262,261 @@ def phase_kernels(rng) -> dict:
     return report
 
 
+def kernel_entry(name: str, bad: int, main: dict, **more) -> dict:
+    """One record of the ``kernels`` line; ``main`` holds ms, plain_ms,
+    bound_ms and bound_by at the shape the main path gives the kernel."""
+    spec = KERNELS[name]
+    return {"name": name, "route": "cuda", "source": spec["source"],
+            "replaces": spec["replaces"], "launches": 0, "max_abs_err": bad,
+            "matches_plain": bad == 0, "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": None, **more}
+
+
+# the padded shape block_factor gives its kernels at n=16384 (nb=512, W=576)
+# and at n=32768 (nb=1024, W=1088)
+M_PAD_16K, W_PAD_16K, NB_16K, WIN_16K = 17152, 512, 512, 576
+M_PAD_32K, NB_32K, WIN_32K = 34048, 1024, 1088
+
+
+def schur_bound(m: int, k: int, nw: int, r0: int, c0w: int, skip: int) -> dict:
+    """Least time for one Schur update: only the tiles that are active under
+    (r0, c0w) count.  Bytes: those tiles of C read and written, the rows of
+    Lp and the words of Up that meet them, read once.  Operations: 2 per bit
+    of the active rectangle and of the contraction, at the 1-bit peak."""
+    rows = max(0, m - r0 // TILE_ROWS * TILE_ROWS)
+    words = max(0, nw - max(c0w // TILE_WORDS, skip) * TILE_WORDS)
+    if rows == 0 or words == 0:
+        rows = words = 0
+    kw = (k + 31) // 32
+    t_bytes = 4 * (2 * rows * words + rows * kw + k * words) / PEAK_BYTES_PER_S * 1e3
+    t_ops = 2 * rows * k * words * 32 / PEAK_B1_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "active_rows": rows, "active_words": words}
+
+
+def phase_schur_kernels(rng) -> dict:
+    """Both Schur kernels against the plain version at the shape the sweep
+    gives them at n=16384, over the bounds that decide which tiles run."""
+    m, nw, k = M_PAD_16K, W_PAD_16K, NB_16K
+    c0 = packed(rng, m, nw * 32)
+    lp0, up0 = packed(rng, m, k), packed(rng, k, nw * 32)
+    static, dyn = gf2_schur_update_hopper, gf2_schur_update_dyn_hopper
+    bad = {"gf2_schur_update_hopper": 0, "gf2_schur_update_dyn_hopper": 0}
+    checked = []
+
+    def operands(r0, c0w):
+        lp, up = lp0.clone(), up0.clone()
+        lp[:r0] = 0
+        up[:, :c0w] = 0
+        return lp, up
+
+    for (r0, c0w, skip) in [(0, 0, 0), (8192, 256, 0), (8200, 258, 0),
+                            (m, nw, 0), (4096, 128, 32), (4100, 131, 20),
+                            (0, 16, 4)]:
+        lp, up = operands(r0, c0w)
+        want = gf2_schur_update_plain(c0.clone(), lp, up)
+        got = static(c0.clone(), lp, up, r0, c0w, col_tile_skip=skip)
+        got_dyn = dyn(c0.clone(), lp, up, r0, c0w)
+        torch.cuda.synchronize()
+        bad["gf2_schur_update_hopper"] |= int((got != want).any())
+        bad["gf2_schur_update_dyn_hopper"] |= int((got_dyn != want).any())
+        if (r0, c0w) == (m, nw):
+            check(torch.equal(got, c0) and torch.equal(got_dyn, c0),
+                  "a full skip changed C")
+        checked.append(f"r0={r0} c0w={c0w} skip={skip}")
+    # bounds handed over as tensors that are already on the card
+    lp, up = operands(5000, 100)
+    want = gf2_schur_update_plain(c0.clone(), lp, up)
+    r0_t = torch.tensor(5000, dtype=torch.int32, device=DEV)
+    c0w_t = torch.tensor(100, dtype=torch.int32, device=DEV)
+    bad["gf2_schur_update_hopper"] |= int(
+        (static(c0.clone(), lp, up, r0_t, c0w_t) != want).any())
+    bad["gf2_schur_update_dyn_hopper"] |= int(
+        (dyn(c0.clone(), lp, up, r0_t, c0w_t) != want).any())
+    checked.append("bounds as device tensors")
+    # a ragged small shape, C a strided view (the gridded kernel only: the
+    # persistent one takes whole tiles and says so)
+    cs, ls, us = packed(rng, 300, 38 * 32 - 7), packed(rng, 300, 150), \
+        packed(rng, 150, 38 * 32 - 7)
+    ls[:70] = 0
+    us[:, :9] = 0
+    parent = packed(rng, 400, 64 * 32)
+    keep = parent.clone()
+    view = parent[50:350, 11:49]
+    view.copy_(cs)
+    static(view, ls, us, 70, 9, col_tile_skip=2)
+    torch.cuda.synchronize()
+    keep[50:350, 11:49] = gf2_schur_update_plain(cs.clone(), ls, us)
+    bad["gf2_schur_update_hopper"] |= int((parent != keep).any())
+    try:
+        dyn(cs.clone(), ls, us, 70, 9)
+    except ValueError:
+        pass
+    else:
+        raise Failed("the persistent Schur kernel took a ragged shape")
+    checked.append("ragged 300x38 words, k=150, strided C")
+    # the skip is decided on whole 128 x 4-word tiles: with the contract
+    # broken on purpose, tiles wholly above r0 or left of c0w keep their
+    # words and every other tile takes the full product
+    full = c0 ^ gf2_mul_plain(lp0, up0)
+    want = c0.clone()
+    row_a, word_a = 8330 // TILE_ROWS * TILE_ROWS, 258 // TILE_WORDS * TILE_WORDS
+    want[row_a:, word_a:] = full[row_a:, word_a:]
+    for name, fn in (("gf2_schur_update_hopper", static),
+                     ("gf2_schur_update_dyn_hopper", dyn)):
+        got = fn(c0.clone(), lp0, up0, 8330, 258)
+        torch.cuda.synchronize()
+        bad[name] |= int((got != want).any())
+    checked.append("whole-tile skip with the contract broken")
+    del full, want
+    for name in bad:
+        check(bad[name] == 0, f"{name} disagrees with its plain version")
+
+    # times: the first panel of the sweep (nothing above, one panel left) and
+    # the middle of it
+    report = {}
+    for name, fn in (("gf2_schur_update_hopper", static),
+                     ("gf2_schur_update_dyn_hopper", dyn)):
+        shapes = []
+        for (r0, c0w) in [(0, 16), (8192, 272)]:
+            lp, up = operands(r0, c0w)
+            c = c0.clone()
+            skip = c0w // TILE_WORDS
+            if fn is static:
+                t = time_ms(lambda: fn(c, lp, up, r0, c0w, col_tile_skip=skip))
+            else:
+                t = time_ms(lambda: fn(c, lp, up, r0, c0w))
+            tp = time_ms(lambda: gf2_schur_update_plain(c, lp, up),
+                         runs=3, warmup=1)
+            shapes.append({"shape": [m, k, nw * 32], "r0": r0, "c0w": c0w,
+                           "ms": t["median"], "ms_min": t["min"],
+                           "ms_max": t["max"], "runs": t["runs"],
+                           "plain_ms": tp["median"],
+                           **schur_bound(m, k, nw, r0, c0w,
+                                         skip if fn is static else 0)})
+        report[name] = kernel_entry(name, bad[name], shapes[0],
+                                    timed_at=shapes[0]["shape"] + [0, 16],
+                                    checked=checked, shapes=shapes)
+    emit("kernels_schur", kernels=list(report.values()))
+    return report
+
+
+def window_words(rng, h: int, nb: int, zero=None) -> torch.Tensor:
+    """A fused [panel | L] window: random panel words, L half zero."""
+    x = packed(rng, h, nb)
+    if zero:
+        x[zero[0]:zero[1]] = 0
+    return torch.cat([x, torch.zeros_like(x)], dim=1)
+
+
+def phase_panel_kernel(rng) -> dict:
+    """The pivot-loop kernel against the plain loop: every output equal."""
+    name, bad, checked = "panel_loop_hopper", 0, []
+    cases = [  # h, nb, preserve_l, search_window, zeroed rows
+        (WIN_16K, NB_16K, False, 0, None), (WIN_16K, NB_16K, True, 0, None),
+        (WIN_32K, NB_32K, False, 0, None), (WIN_32K, NB_32K, True, 0, None),
+        (640, NB_16K, False, 64, (10, 300)),         # restricted search
+        (WIN_16K, NB_16K, True, 0, (40, 330)),       # not-found steps
+        (M_PAD_16K, NB_16K, True, 0, (100, 9000)),   # window in device memory
+        (M_PAD_32K, NB_32K, False, 0, (0, 20000))]
+    modes = {}
+    for (h, nb, pres, sw, zero) in cases:
+        al0 = window_words(rng, h, nb, zero)
+        r0, base = 1000, (1000 if h < 8192 else 0)
+        m = base + h - 5
+        r0_dev = torch.tensor(r0, dtype=torch.int32, device=DEV)
+        want = panel_loop_plain(al0, r0, base, m, nb, pres, sw)
+        got = panel_loop_hopper(al0, r0_dev, base, m, nb, pres, sw)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            bad |= int(g.shape != w.shape or bool((g != w).any()))
+        modes[f"h={h} nb={nb}"] = hopper_panel.window_mode(h, nb)
+        checked.append(f"h={h} nb={nb} preserve_l={pres} search_window={sw} "
+                       f"zeroed={zero} found={int(got[2]) - r0}")
+    check(bad == 0, f"{name} disagrees with its plain version")
+    check(modes[f"h={WIN_16K} nb={NB_16K}"] == "shared"
+          and modes[f"h={WIN_32K} nb={NB_32K}"] == "split"
+          and modes[f"h={M_PAD_16K} nb={NB_16K}"] == "global",
+          f"unexpected window modes {modes}")
+    try:   # a mode that does not fit the card's shared memory is refused
+        hopper_panel._launch(window_words(rng, WIN_32K, NB_32K), 0, 0, WIN_32K,
+                             NB_32K, True, 0, mode=1)
+    except RuntimeError:
+        pass
+    else:
+        raise Failed("a 283 KB window was taken into shared memory")
+    shapes = []
+    for (h, nb) in [(WIN_16K, NB_16K), (WIN_32K, NB_32K), (M_PAD_16K, NB_16K)]:
+        al0 = window_words(rng, h, nb)
+        args = (al0, 0, 0, h, nb, True, 0)
+        t = time_ms(lambda: hopper_panel._launch(*args))
+        floor = time_ms(lambda: hopper_panel._launch(*args, row_work=False))
+        tp = time_ms(lambda: panel_loop_plain(*args), runs=3, warmup=1)
+        # bytes: the window read and written once, the index outputs written
+        nbytes = 4 * (2 * h * 2 * (nb // 32) + h + 4 * nb + 1)
+        shapes.append({"h": h, "nb": nb, "mode": hopper_panel.window_mode(h, nb),
+                       "ms": t["median"], "ms_min": t["min"], "ms_max": t["max"],
+                       "runs": t["runs"], "plain_ms": tp["median"],
+                       "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
+                       "bound_by": "bytes",
+                       "serial_floor_ms_loop_without_row_work": floor["median"],
+                       "us_per_column": t["median"] / nb * 1e3})
+    panel_loop_hopper.launches = 0
+    report = {name: kernel_entry(name, bad, shapes[0],
+                                 timed_at=[WIN_16K, 2 * NB_16K // 32],
+                                 checked=checked, shapes=shapes, modes=modes)}
+    emit("kernels_panel", kernels=list(report.values()))
+    return report
+
+
+def phase_post_kernel(rng) -> dict:
+    name, bad, checked, shapes = "panel_post_hopper", 0, [], []
+    for (m, nb, below0, mvalid) in [(M_PAD_16K, NB_16K, 1000 + WIN_16K, 16390),
+                                    (M_PAD_32K, NB_32K, 2500 + WIN_32K, 32770)]:
+        xw = packed(rng, m, nb)
+        msm, wm = (torch.from_numpy(
+            (rng.random((nb, nb)) < 0.5).astype(np.int8)).to(DEV)
+            for _ in range(2))
+        some = torch.from_numpy((rng.random(nb) < 0.2).astype(np.int8)).to(DEV)
+        for cmb, want_miss in ((some, True), (torch.zeros_like(some), False)):
+            want = panel_post_plain(xw, msm, wm, cmb, below0, mvalid)
+            got = panel_post_hopper(xw, msm, wm, cmb, below0, mvalid)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                bad |= int(bool((g != w).any()))
+            check(bool(got[2]) is want_miss, f"post miss flag, want {want_miss}")
+            checked.append(f"m={m} nb={nb} rows [{below0}, {mvalid}) "
+                           f"miss={want_miss}")
+        # a panel cut from a wider matrix, as the sweep hands it over
+        wide = packed(rng, m, nb + 4096)
+        view = wide[:, 64:64 + nb // 32]
+        view.copy_(xw)
+        got = panel_post_hopper(view, msm, wm, some, below0, mvalid)
+        want = panel_post_plain(xw, msm, wm, some, below0, mvalid)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            bad |= int(bool((g != w).any()))
+        t = time_ms(lambda: panel_post_hopper(view, msm, wm, some, below0, mvalid))
+        tp = time_ms(lambda: panel_post_plain(view, msm, wm, some, below0, mvalid),
+                     runs=3, warmup=1)
+        nbw = nb // 32
+        t_bytes = 4 * (3 * m * nbw + 2 * nb * nbw + nbw) / PEAK_BYTES_PER_S * 1e3
+        t_ops = 2 * 2 * (mvalid - below0) * nb * nb / PEAK_B1_OPS_PER_S * 1e3
+        shapes.append({"m": m, "nb": nb, "rows": [below0, mvalid],
+                       "ms": t["median"], "ms_min": t["min"], "ms_max": t["max"],
+                       "runs": t["runs"], "plain_ms": tp["median"],
+                       "bound_ms": max(t_bytes, t_ops),
+                       "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+    check(bad == 0, f"{name} disagrees with its plain version")
+    report = {name: kernel_entry(name, bad, shapes[0],
+                                 timed_at=[M_PAD_16K, NB_16K // 32],
+                                 checked=checked, shapes=shapes)}
+    emit("kernels_post", kernels=list(report.values()))
+    return report
+
+
 def phase_mul_4096(seed: int) -> dict:
     n = 4096
     rng = np.random.default_rng(seed)
@@ -235,7 +525,7 @@ def phase_mul_4096(seed: int) -> dict:
     zero_counts()
     C = m4.mul(A, B)
     torch.cuda.synchronize()
-    got = counts()
+    got = gemm_counts()
     check(got == {"gf2_mul_hopper": 0, "gf2_mul_hopper_v2": 1},
           f"mul at n=4096 launched {got}, want the v2 kernel exactly once")
     check(torch.equal(C.data, gf2_mul_plain(A.data, B.data)),
@@ -253,7 +543,7 @@ def phase_mul_4096(seed: int) -> dict:
 
 def phase_mul_routes(seed: int) -> dict:
     rng = np.random.default_rng(seed + 1)
-    total = {name: 0 for name in KERNELS}
+    total = {name: 0 for name in GEMMS}
     routes = []
     for (m, k, n), want_counts in [
             ((4096, 2048, 4096), {"gf2_mul_hopper": 1, "gf2_mul_hopper_v2": 0}),
@@ -264,7 +554,7 @@ def phase_mul_routes(seed: int) -> dict:
         zero_counts()
         C = m4.mul(A, B)
         torch.cuda.synchronize()
-        got = counts()
+        got = gemm_counts()
         check(got == want_counts, f"mul {m}x{k}x{n} launched {got}")
         check((m4.to_numpy(C) == host_product(m4.to_numpy(A), m4.to_numpy(B))).all(),
               f"mul {m}x{k}x{n} differs from the host product")
@@ -281,7 +571,7 @@ def phase_strassen(seed: int) -> dict:
     A = m4.from_packed(packed(rng, n, n), n)
     B = m4.from_packed(packed(rng, n, n), n)
     C = m4.from_packed(packed(rng, n, n), n)
-    total = {name: 0 for name in KERNELS}
+    total = {name: 0 for name in GEMMS}
     per_op = {}
     outs = {}
     for op, run in [("mul", lambda: m4.mul(A, B)),
@@ -290,7 +580,7 @@ def phase_strassen(seed: int) -> dict:
         zero_counts()
         outs[op] = run()
         torch.cuda.synchronize()
-        per_op[op] = counts()
+        per_op[op] = gemm_counts()
         for name in total:
             total[name] += per_op[op][name]
     check(per_op["mul"] == {"gf2_mul_hopper": 0, "gf2_mul_hopper_v2": 7},
@@ -317,13 +607,13 @@ def phase_strassen(seed: int) -> dict:
           "direct square at n=16384 differs from the plain version")
     check(torch.equal(outs["sqr"].data, aa), "Strassen squaring differs")
     del outs, ab, aa
-    t = {"mul": time_ms(lambda: m4.mul(A, B), runs=5, warmup=1),
-         "addmul": time_ms(lambda: m4.addmul(C, A, B), runs=5, warmup=1),
-         "sqr": time_ms(lambda: m4.mul(A, A), runs=5, warmup=1),
+    t = {"mul": time_ms(lambda: m4.mul(A, B), runs=3, warmup=1),
+         "addmul": time_ms(lambda: m4.addmul(C, A, B), runs=3, warmup=1),
+         "sqr": time_ms(lambda: m4.mul(A, A), runs=3, warmup=1),
          "direct_v2": time_ms(lambda: gf2_mul_hopper_v2(A.data, B.data),
-                              runs=5, warmup=1),
+                              runs=3, warmup=1),
          "base_v2_8192_views": time_ms(lambda: gf2_mul_hopper_v2(a11, b11),
-                                       runs=5, warmup=1)}
+                                       runs=3, warmup=1)}
     emit("strassen_16384", ok=True, launches=per_op, ms=t,
          mul_tbitops_per_s=2 * n**3 / t["mul"]["median"] / 1e9,
          peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
@@ -367,6 +657,258 @@ def phase_naive_and_golden(seed: int) -> None:
     emit("naive_and_golden", ok=True, golden_mul_records=len(recs))
 
 
+# ------------------------------------------------- the factorization path ---
+
+FACTOR_KERNELS = ("panel_loop_hopper", "panel_post_hopper",
+                  "gf2_schur_update_hopper", "gf2_schur_update_dyn_hopper",
+                  "gf2_mul_hopper")
+
+
+def time_host_ms(fn, runs: int, warmup: int = 1) -> dict:
+    """Host-clock time of each of ``runs`` calls, each ended by a
+    synchronize: a factorization reads back from the device as it goes."""
+    for _ in range(warmup):
+        fn()
+    ts = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return {"median": statistics.median(ts), "min": min(ts), "max": max(ts),
+            "runs": runs}
+
+
+def with_schur_dyn(fn):
+    """Run ``fn`` with Config.schur_dyn on, as a user would set it."""
+    os.environ["M4RI_TPU_TORCH_SCHUR_DYN"] = "1"
+    config_mod.get_config.cache_clear()
+    try:
+        check(get_config().schur_dyn, "schur_dyn did not switch on")
+        return fn()
+    finally:
+        del os.environ["M4RI_TPU_TORCH_SCHUR_DYN"]
+        config_mod.get_config.cache_clear()
+
+
+def same_factors(got, want, what: str) -> None:
+    for g, w, part in zip(got[:3], want[:3], ("data", "P", "Q")):
+        check(torch.equal(g, w), f"{what}: {part} differs from the plain engine")
+    check(got[3] == want[3], f"{what}: rank {got[3]} != {want[3]}")
+
+
+def factor_counted(A, preserve_l: bool, **kw):
+    """block_factor with the default engine and what it launched and read
+    back: (result, launches, host syncs, miss fallbacks)."""
+    zero_counts()
+    syncs, misses = (ple_mod.block_factor.host_syncs,
+                     ple_mod.block_factor.miss_fallbacks)
+    out = m4.block_factor(A, preserve_l=preserve_l, **kw)
+    torch.cuda.synchronize()
+    return (out, counts(FACTOR_KERNELS),
+            ple_mod.block_factor.host_syncs - syncs,
+            ple_mod.block_factor.miss_fallbacks - misses)
+
+
+def add_counts(total: dict, got: dict) -> None:
+    for name, n in got.items():
+        total[name] = total.get(name, 0) + n
+
+
+def valid_swaps(P, Q, r: int, m: int, n: int) -> bool:
+    """LAPACK-style swap arrays: P[i] in [i, m) for the r pivots and the
+    identity after them; Q strictly increasing on the pivots, inside [0, n)."""
+    p, q = P.tolist(), Q.tolist()
+    return (len(p) == m and len(q) == n
+            and all(i <= p[i] < m for i in range(r))
+            and p[r:] == list(range(r, m))
+            and all(q[i] < q[i + 1] for i in range(r - 1))
+            and all(i <= q[i] < n for i in range(r)))
+
+
+def phase_ple_16384(seed: int) -> dict:
+    n, panels = 16384, 16384 // NB_16K
+    rng = np.random.default_rng(seed + 10)
+    A = m4.from_packed(packed(rng, n, n), n)
+    total = {}
+    torch.cuda.reset_peak_memory_stats()
+    per_run = {}
+    for pres in (False, True):
+        got, launched, syncs, misses = factor_counted(A, pres)
+        add_counts(total, launched)
+        want = m4.block_factor(A, preserve_l=pres, engine="plain")
+        same_factors(got, want, f"block_factor 16384 preserve_l={pres}")
+        check(launched == {"panel_loop_hopper": panels + misses,
+                           "panel_post_hopper": panels,
+                           "gf2_schur_update_hopper": panels,
+                           "gf2_schur_update_dyn_hopper": 0,
+                           "gf2_mul_hopper": panels},
+              f"block_factor 16384 launched {launched} over {panels} panels")
+        check(syncs == panels + misses, f"{syncs} read-backs, {panels} panels")
+        per_run[f"preserve_l={pres}"] = {"launches": launched, "rank": got[3],
+                                         "host_syncs": syncs,
+                                         "miss_fallbacks": misses}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # the persistent Schur kernel instead of the gridded one
+    got_dyn, launched, _, misses = with_schur_dyn(
+        lambda: factor_counted(A, True))
+    add_counts(total, launched)
+    same_factors(got_dyn, want, "block_factor 16384 with schur_dyn")
+    check(launched["gf2_schur_update_dyn_hopper"] == panels
+          and launched["gf2_schur_update_hopper"] == 0,
+          f"with schur_dyn the sweep launched {launched}")
+    per_run["schur_dyn"] = {"launches": launched}
+    # the entry points a user calls
+    zero_counts()
+    M, P, Q, r = m4.ple(A)
+    rk = m4.rank(A)
+    torch.cuda.synchronize()
+    add_counts(total, counts(FACTOR_KERNELS))
+    check(r == rk == want[3], f"ple rank {r}, rank {rk}, plain engine {want[3]}")
+    check(torch.equal(P, want[1]) and torch.equal(Q, want[2]),
+          "ple 16384: P or Q differs from the plain engine")
+    plain_m = mask_padding(BitMatrix(
+        ple_mod._compress_l_impl(want[0], want[2], want[3], n, n), n))
+    check(torch.equal(M.data, plain_m.data),
+          "ple 16384: the compressed body differs from the plain path's")
+    check(valid_swaps(P, Q, r, n, n), "ple 16384: P, Q are not swap arrays")
+    del plain_m, got, got_dyn
+    t = {"ple": time_host_ms(lambda: m4.ple(A), runs=5),
+         "rank": time_host_ms(lambda: m4.rank(A), runs=5),
+         "ple_schur_dyn": with_schur_dyn(
+             lambda: time_host_ms(lambda: m4.ple(A), runs=5)),
+         "compress_l": time_host_ms(
+             lambda: ple_mod._compress_l_impl(want[0], want[2], want[3], n, n),
+             runs=5),
+         "block_factor_plain_engine": time_host_ms(
+             lambda: m4.block_factor(A, preserve_l=True, engine="plain"),
+             runs=1, warmup=0)}
+    emit("ple_16384", ok=True, rank=r, panels=panels, runs=per_run, ms=t,
+         host_syncs_per_factorization=per_run["preserve_l=True"]["host_syncs"],
+         peak_memory_gb=peak_gb)
+    return total
+
+
+def phase_ple_deficient(seed: int) -> dict:
+    """Inputs whose windows go rank-deficient: a band of zero rows (the
+    pivot lies below the window, so the panel is redone at full height by
+    the panel kernel in device memory), and a product of known rank."""
+    n = 4096
+    rng = np.random.default_rng(seed + 11)
+    total = {}
+    a = packed(rng, n, n)
+    a[600:2000] = 0
+    A = m4.from_packed(a, n)
+    out = {}
+    for pres in (False, True):
+        got, launched, syncs, misses = factor_counted(A, pres)
+        add_counts(total, launched)
+        want = m4.block_factor(A, preserve_l=pres, engine="plain")
+        same_factors(got, want, f"zeroed band preserve_l={pres}")
+        check(misses > 0, "the zeroed band caused no miss fallback")
+        check(launched["panel_loop_hopper"] == n // NB_16K + misses,
+              f"zeroed band: {launched}, {misses} fallbacks")
+        out[f"zeroed_band preserve_l={pres}"] = {
+            "rank": got[3], "miss_fallbacks": misses, "host_syncs": syncs,
+            "launches": launched}
+    k = 1000
+    B = m4.from_packed(packed(rng, n, k), k)
+    C = m4.from_packed(packed(rng, k, n), n)
+    L = m4.mul(B, C)
+    zero_counts()
+    M, P, Q, r = m4.ple(L)
+    rk = m4.rank(L)
+    torch.cuda.synchronize()
+    add_counts(total, counts(FACTOR_KERNELS))
+    check(r == rk == k, f"product of rank {k}: ple says {r}, rank says {rk}")
+    want = m4.block_factor(L, preserve_l=True, engine="plain")
+    check(torch.equal(P, want[1]) and torch.equal(Q, want[2]) and r == want[3],
+          "low-rank product: P, Q or rank differ from the plain engine")
+    check(valid_swaps(P, Q, r, n, n), "low-rank product: not swap arrays")
+    out["low_rank_product"] = {"rank": r}
+    emit("ple_deficient", ok=True, n=n, cases=out)
+    return total
+
+
+def phase_ple_32768(seed: int) -> dict:
+    """The wide panel (nb=1024, W=1088) on a product of known rank."""
+    n, k = 32768, 30000
+    panels = n // NB_32K
+    rng = np.random.default_rng(seed + 12)
+    B = m4.from_packed(packed(rng, n, k), k)
+    C = m4.from_packed(packed(rng, k, n), n)
+    A = m4.mul(B, C)
+    del B, C
+    total = {}
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    syncs, misses = (ple_mod.block_factor.host_syncs,
+                     ple_mod.block_factor.miss_fallbacks)
+    M, P, Q, r = m4.ple(A)
+    torch.cuda.synchronize()
+    launched = counts(FACTOR_KERNELS)
+    syncs = ple_mod.block_factor.host_syncs - syncs
+    misses = ple_mod.block_factor.miss_fallbacks - misses
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rk = m4.rank(A)
+    torch.cuda.synchronize()
+    add_counts(total, counts(FACTOR_KERNELS))
+    check(r == rk == k, f"product of rank {k}: ple says {r}, rank says {rk}")
+    check(valid_swaps(P, Q, r, n, n), "ple 32768: P, Q are not swap arrays")
+    check(launched["panel_loop_hopper"] == panels + misses
+          and launched["panel_post_hopper"] == panels
+          and launched["gf2_schur_update_hopper"] == panels
+          and launched["gf2_mul_hopper"] == panels,
+          f"ple 32768 launched {launched} over {panels} panels")
+    t0 = time.perf_counter()
+    want = m4.block_factor(A, preserve_l=True, engine="plain")
+    plain_m = mask_padding(BitMatrix(
+        ple_mod._compress_l_impl(want[0], want[2], want[3], n, n), n))
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    check(torch.equal(M.data, plain_m.data) and torch.equal(P, want[1])
+          and torch.equal(Q, want[2]) and r == want[3],
+          "ple 32768 differs from the plain engine")
+    del want, plain_m, M
+    t = {"ple": time_host_ms(lambda: m4.ple(A), runs=3),
+         "rank": time_host_ms(lambda: m4.rank(A), runs=3)}
+    emit("ple_32768", ok=True, rank=r, panels=panels, launches=launched,
+         host_syncs=syncs, miss_fallbacks=misses, ms=t,
+         compared_with_plain_engine=True, plain_engine_seconds=plain_s,
+         peak_memory_gb=peak_gb)
+    return total
+
+
+def phase_golden_ple() -> dict:
+    """The reference C library's own rank, P, Q and L|E body, on the card."""
+    golden = HERE / "tests" / "data" / "golden_reference.jsonl"
+    recs = [json.loads(ln) for ln in golden.read_text().splitlines()]
+    recs = [r for r in recs if r["op"] == "ple"]
+    check(len(recs) == 8, f"want 8 golden ple records, found {len(recs)}")
+    zero_counts()
+    for rec in recs:
+        what = f"golden ple {rec['kind']} {rec['m']}x{rec['n']}"
+        if rec["k"]:
+            g = GlibcRandom(17)
+            b = reference_random_data(rec["m"], rec["k"], rng=g)
+            c = reference_random_data(rec["k"], rec["n"], rng=g)
+            A = m4.mul(m4.from_reference(b, rec["k"]),
+                       m4.from_reference(c, rec["n"]))
+        else:
+            A = m4.randomize_reference(rec["m"], rec["n"], seed=17)
+        check(fnv1a_bits(m4.to_numpy(A)) == rec["in_hash"], f"{what}: in_hash")
+        M, P, Q, r = m4.ple(A)
+        check(r == rec["rank"], f"{what}: rank {r}")
+        check(P.tolist() == rec["P"], f"{what}: P")
+        check(Q.tolist() == rec["Q"], f"{what}: Q")
+        check(fnv1a_bits(m4.to_numpy(M)) == rec["out_hash"], f"{what}: out_hash")
+    torch.cuda.synchronize()
+    got = counts(FACTOR_KERNELS)
+    emit("golden_ple", ok=True, records=len(recs), launches=got)
+    return got
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=17)
@@ -374,12 +916,17 @@ def main() -> int:
     t0 = time.time()
     try:
         card = phase_device()
-        report = phase_kernels(np.random.default_rng(seed + 100))
+        rng = np.random.default_rng(seed + 100)
+        report = phase_kernels(rng)
+        report.update(phase_schur_kernels(rng))
+        report.update(phase_panel_kernel(rng))
+        report.update(phase_post_kernel(rng))
         launches = {name: 0 for name in KERNELS}
         for got in (phase_mul_4096(seed), phase_mul_routes(seed),
-                    phase_strassen(seed)):
-            for name in launches:
-                launches[name] += got[name]
+                    phase_strassen(seed), phase_ple_16384(seed),
+                    phase_ple_deficient(seed), phase_ple_32768(seed),
+                    phase_golden_ple()):
+            add_counts(launches, got)
         phase_naive_and_golden(seed)
         for name, n in launches.items():
             check(n > 0, f"the main path never launched {name}")
@@ -388,7 +935,9 @@ def main() -> int:
         emit("failed", ok=False, error=str(e))
         return 1
     torch.cuda.synchronize()
-    emit("done", seconds=time.time() - t0)
+    emit("done", seconds=time.time() - t0,
+         host_syncs=ple_mod.block_factor.host_syncs,
+         miss_fallbacks=ple_mod.block_factor.miss_fallbacks)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys}

@@ -1,5 +1,6 @@
-// Shared pieces of the two GF(2) GEMM kernels (gf2_mul_hopper.cu,
-// gf2_mul_hopper_v2.cu): the pre-pass that bit-transposes B, the staging of
+// Shared pieces of the kernels built on the GF(2) tile product
+// (gf2_mul_hopper.cu, gf2_mul_hopper_v2.cu, gf2_schur_hopper.cu,
+// gf2_post_hopper.cu): the pre-pass that bit-transposes B, the staging of
 // operand tiles in shared memory, the 1-bit tensor-core inner product and the
 // parity/pack epilogue.
 //
@@ -206,15 +207,14 @@ __device__ __forceinline__ void tile_mainloop(
   }
 }
 
-// Parity of the counts, 32 columns to a word, written once.  The four
-// threads of a group hold 8 of a word's 32 bits each; two shuffles OR them
-// together, then thread `tig` stores the word (half = tig>>1, wi = tig&1) of
-// each m16 tile.  kXor: XOR into C with an atomic instead of a plain store.
-template <bool kXor>
-__device__ __forceinline__ void store_parity(const int (&acc)[2][8][4],
-                                             uint32_t* __restrict__ c,
-                                             long ldc, int m, int nw, int m0,
-                                             int n0) {
+// Parity of the counts, 32 columns to a word.  The four threads of a group
+// hold 8 of a word's 32 bits each; two shuffles OR them together, then thread
+// `tig` owns the word (half = tig>>1, wi = tig&1) of each m16 tile and hands
+// it to f(row, word, bits).  Every word of the tile goes to exactly one
+// thread, once; f masks the ragged edge.
+template <typename F>
+__device__ __forceinline__ void for_each_parity_word(const int (&acc)[2][8][4],
+                                                     int m0, int n0, F f) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wm = warp >> 1, wn = warp & 1;
   const int g = lane >> 2, tig = lane & 3;
@@ -237,13 +237,24 @@ __device__ __forceinline__ void store_parity(const int (&acc)[2][8][4],
       hi |= __shfl_xor_sync(0xffffffffu, hi, 2);
       if ((tig & 1) == wi) mine = (tig >> 1) ? hi : lo;
     }
-    const int row = m0 + wm * 32 + mt * 16 + g + 8 * (tig >> 1);
-    const int word = n0 / 32 + wn * 2 + (tig & 1);
+    f(m0 + wm * 32 + mt * 16 + g + 8 * (tig >> 1),
+      n0 / 32 + wn * 2 + (tig & 1), mine);
+  }
+}
+
+// The tile written to C once.  kXor: XOR into C with an atomic (several
+// blocks share a word) instead of a plain store.
+template <bool kXor>
+__device__ __forceinline__ void store_parity(const int (&acc)[2][8][4],
+                                             uint32_t* __restrict__ c,
+                                             long ldc, int m, int nw, int m0,
+                                             int n0) {
+  for_each_parity_word(acc, m0, n0, [&](int row, int word, uint32_t bits) {
     if (row < m && word < nw) {
       uint32_t* dst = c + (long)row * ldc + word;
-      if (kXor) atomicXor(dst, mine); else *dst = mine;
+      if (kXor) atomicXor(dst, bits); else *dst = bits;
     }
-  }
+  });
 }
 
 inline bool aligned16(const void* p, long ld_words) {

@@ -3,10 +3,10 @@
 The reference library derives every algorithmic cutoff from CPU cache sizes
 detected at configure time (reference: configure.ac:198-219, misc.h:569-599,
 strassen.h:133-135).  Here ``get_config()`` inspects ``torch.cuda`` once and
-derives the knobs the multiply path reads: block sizes bounding the unpacked
-float32 intermediates of the blocked ``torch.matmul`` path, the Strassen
-crossover, and the gates that route a product to the hand-written Hopper
-kernels.  Every field can be overridden with an ``M4RI_TPU_TORCH_<FIELD>``
+derives the knobs the multiply and factorization paths read: block sizes
+bounding the unpacked float32 intermediates of the blocked ``torch.matmul``
+path, the Strassen crossover, the gates that route a product to the
+hand-written Hopper kernels, and the panel widths of the PLE sweep.  Every field can be overridden with an ``M4RI_TPU_TORCH_<FIELD>``
 environment variable.
 
 All sizes are in *bits* (matrix dimensions) unless noted.
@@ -50,6 +50,22 @@ class Config:
     # Of those, contractions deeper than 64 words go to gf2_mul_hopper_v2
     # (ops/hopper_mul2.py), the split-contraction kernel.
     use_hopper_v2: bool = True
+    # Panel width of the blocked PLE / echelonization sweep, and the height
+    # of the row window its sequential pivot loop runs on (models/ple.py).
+    # A window that goes rank-deficient is detected exactly and the panel is
+    # redone at full height, so the 64-row margin is a matter of speed only.
+    panel_width: int = 512
+    panel_window: int = 576
+    # From min-dim >= panel_width_big_min the sweep takes the wide panel.
+    panel_width_big: int = 1024
+    panel_window_big: int = 1088
+    panel_width_big_min: int = 32768
+    # Take the persistent Schur kernel, which derives its tile range from the
+    # bounds on the device (ops/hopper_schur.py), instead of the gridded one.
+    schur_dyn: bool = False
+    # On the card, run the factorization through the hand-written kernels
+    # (engine "hopper" of models/ple.py); off, the plain PyTorch engine.
+    use_hopper_panel: bool = True
     # Provenance of the derived values ("cuda:<name>", "cpu", "default").
     derived_from: str = "default"
 
@@ -77,7 +93,7 @@ def _derive() -> Config:
     if torch.cuda.is_available():
         return Config(derived_from=f"cuda:{torch.cuda.get_device_name(0)}")
     return Config(use_hopper_schur=False, use_hopper_big=False,
-                  mul_block_k=4096, mul_block_m=4096,
+                  use_hopper_panel=False, mul_block_k=4096, mul_block_m=4096,
                   mul_block_threshold=4096, strassen_cutoff=4096,
                   derived_from="cpu")
 

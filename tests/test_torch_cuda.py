@@ -93,3 +93,139 @@ def test_wrappers_raise_on_what_they_do_not_take(card):
         gf2_mul_hopper_v2(a, b, accumulate=True)
     with pytest.raises(ValueError):
         gf2_mul_hopper(a, b.cpu())
+
+
+# ---- the factorization path's kernels --------------------------------------
+
+from m4ri_tpu_torch.ops import hopper_panel, hopper_post, hopper_schur  # noqa: E402
+
+
+def _schur_operands(card, m, k, n, r0, c0w, seed=20):
+    c, lp, up = (_packed(seed, m, n, card), _packed(seed + 1, m, k, card),
+                 _packed(seed + 2, k, n, card))
+    lp[:r0] = 0
+    up[:, :c0w] = 0
+    return c, lp, up
+
+
+@pytest.mark.parametrize("kernel", ["static", "dyn"])
+@pytest.mark.parametrize("r0,c0w", [(0, 0), (100, 16), (256, 128), (512, 128),
+                                    (37, 5), (511, 127)])
+def test_schur_equals_plain(card, kernel, r0, c0w):
+    """The bounds of the JAX package's dyn test, on the port's tiles: partial
+    tiles stay active, (512, 128) skips everything."""
+    c, lp, up = _schur_operands(card, 512, 256, 128 * 32, r0, c0w)
+    want = hopper_schur.gf2_schur_update_plain(c.clone(), lp, up)
+    if kernel == "dyn":
+        got = hopper_schur.gf2_schur_update_dyn_hopper(c, lp, up, r0, c0w)
+    else:
+        got = hopper_schur.gf2_schur_update_hopper(
+            c, lp, up, r0, c0w, col_tile_skip=min(c0w // 4, 31))
+    torch.cuda.synchronize()
+    assert got is c and torch.equal(c, want)
+
+
+def test_schur_ragged_and_strided(card):
+    """A ragged shape (rows, words and contraction off the tile), operands
+    that are views, and bounds given as tensors on the card."""
+    c, lp, up = _schur_operands(card, 300, 150, 37 * 32 + 5, 70, 9)
+    want = hopper_schur.gf2_schur_update_plain(c.clone(), lp, up)
+    parent = _packed(30, 400, 64 * 32, card)
+    keep = parent.clone()
+    view = parent[50:350, 11:11 + 38]
+    view.copy_(c)
+    r0 = torch.tensor(70, dtype=torch.int32, device=card)
+    hopper_schur.gf2_schur_update_hopper(view, lp, up, r0, 9, col_tile_skip=2)
+    torch.cuda.synchronize()
+    keep[50:350, 11:11 + 38] = want
+    assert torch.equal(parent, keep)
+
+
+@pytest.mark.parametrize("kernel", ["static", "dyn"])
+def test_schur_skips_whole_tiles_only(card, kernel):
+    """With the contract broken on purpose (lp and up dense everywhere) the
+    tiles wholly above r0 or left of c0w keep their words and every other
+    tile takes the full product: the skip is decided on 128 x 4-word tiles."""
+    c = _packed(40, 512, 64 * 32, card)
+    lp, up = _packed(41, 512, 128, card), _packed(42, 128, 64 * 32, card)
+    r0, c0w = 300, 21
+    want = c.clone()
+    full = c ^ gf2_mul_plain(lp, up)
+    want[256:, 20:] = full[256:, 20:]
+    fn = (hopper_schur.gf2_schur_update_dyn_hopper if kernel == "dyn"
+          else hopper_schur.gf2_schur_update_hopper)
+    fn(c, lp, up, r0, c0w)
+    torch.cuda.synchronize()
+    assert torch.equal(c, want)
+
+
+def _window(card, seed, h, nb, zero=None):
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, 2**32, (h, nb // 32), dtype=np.uint64).astype(np.uint32)
+    if zero:
+        x[zero[0]:zero[1]] = 0
+    al0 = np.concatenate([x, np.zeros_like(x)], axis=1)
+    return torch.from_numpy(al0.view(np.int32)).to(card)
+
+
+@pytest.mark.parametrize("h,nb,preserve_l,sw,zero,mode", [
+    (96, 64, False, 0, None, 0), (96, 64, True, 0, None, 0),
+    (576, 512, True, 0, None, 0), (576, 512, False, 0, (40, 300), 0),
+    (1088, 1024, True, 0, None, 0), (640, 512, False, 64, (10, 200), 0),
+    (576, 512, True, 0, None, 3), (1088, 1024, False, 0, (100, 900), 2),
+    (3000, 512, True, 0, (5, 2000), 0),
+])
+def test_panel_loop_equals_plain(card, h, nb, preserve_l, sw, zero, mode):
+    al0 = _window(card, 50, h, nb, zero)
+    r0, base, m = 7, 7, h - 3 + 7
+    want = hopper_panel.panel_loop_plain(al0, r0, base, m, nb, preserve_l, sw)
+    got = hopper_panel._launch(al0, r0, base, m, nb, preserve_l, sw, mode=mode)
+    torch.cuda.synchronize()
+    for g, w, what in zip(got, want, ["AL", "rowperm", "r", "touched", "p", "q"]):
+        assert torch.equal(g, w), what
+
+
+def test_panel_loop_refuses_a_mode_that_does_not_fit(card):
+    al0 = _window(card, 51, 1088, 1024)
+    with pytest.raises(RuntimeError):
+        hopper_panel._launch(al0, 0, 0, 1088, 1024, True, 0, mode=1)
+
+
+@pytest.mark.parametrize("m,nb,below0,mvalid,force", [
+    (512, 64, 192, 500, None), (1000, 512, 130, 901, False),
+    (1000, 512, 130, 901, True), (700, 1024, 0, 700, None),
+    (300, 96, 300, 300, None),
+])
+def test_panel_post_equals_plain(card, m, nb, below0, mvalid, force):
+    rng = np.random.default_rng(60)
+    xw = _packed(61, m, nb, card)
+    msm, wm = (torch.from_numpy((rng.random((nb, nb)) < 0.5).astype(np.int8)).to(card)
+               for _ in range(2))
+    cmb = torch.from_numpy((rng.random(nb) < 0.2).astype(np.int8)).to(card)
+    if force is False:
+        cmb.zero_()
+    parent = _packed(62, m, nb + 96, card)       # xw as a strided view
+    view = parent[:, 1:1 + nb // 32]
+    view.copy_(xw)
+    want = hopper_post.panel_post_plain(xw, msm, wm, cmb, below0, mvalid)
+    got = hopper_post.panel_post_hopper(view, msm, wm, cmb, below0, mvalid)
+    torch.cuda.synchronize()
+    for g, w, what in zip(got, want, ["v", "lam", "miss"]):
+        assert torch.equal(g, w), what
+    if force is not None:
+        assert bool(got[2]) is force
+
+
+def test_factorization_equals_plain_engine(card):
+    import m4ri_tpu_torch as mt
+    a = _packed(70, 1500, 1300, card)
+    a[200:900] = 0                                # windows go deficient
+    A = mt.from_packed(a, 1300)
+    for pres in (False, True):
+        want = mt.block_factor(A, preserve_l=pres, nb=256, engine="plain")
+        before = mt.block_factor.miss_fallbacks
+        got = mt.block_factor(A, preserve_l=pres, nb=256)
+        assert mt.block_factor.miss_fallbacks > before
+        for g, w in zip(got[:3], want[:3]):
+            assert torch.equal(g, w)
+        assert got[3] == want[3]

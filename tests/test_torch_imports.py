@@ -35,7 +35,29 @@ def test_no_import_of_jax_or_the_jax_package(path):
 def test_the_walk_sees_the_port():
     names = {p.name for p in FILES}
     assert {"bitmatrix.py", "mul.py", "strassen.py", "hopper_mul.py",
-            "hopper_mul2.py", "_build.py", "chip_smoke.py"} <= names
+            "hopper_mul2.py", "_build.py", "chip_smoke.py", "hopper_schur.py",
+            "hopper_panel.py", "hopper_post.py", "ple.py", "echelon.py",
+            "split_ple.py"} <= names
+
+
+def test_every_kernel_source_has_a_wrapper_module():
+    """Each csrc/*.cu is loaded by name from exactly the module that wraps
+    it, inside a function: nothing is built when the package is imported."""
+    sources = {p.stem for p in (PKG / "csrc").glob("*.cu")}
+    assert {"gf2_schur_hopper", "gf2_panel_hopper", "gf2_post_hopper"} <= sources
+    text = {p: p.read_text() for p in FILES}
+    for stem in sources:
+        users = [p for p, t in text.items()
+                 if f'load("{stem}")' in t or f'"{stem}"' in t]
+        assert users, f"no module loads csrc/{stem}.cu"
+    for path in FILES:
+        tree = ast.parse(text[path])
+        for node in tree.body:           # module level: no call of load/build
+            for call in ast.walk(node) if not isinstance(
+                    node, (ast.FunctionDef, ast.ClassDef)) else ():
+                if isinstance(call, ast.Call):
+                    name = getattr(call.func, "id", getattr(call.func, "attr", ""))
+                    assert name not in ("load", "build"), f"{path}: {name}() at import"
 
 
 _CHILD = r"""
@@ -51,6 +73,10 @@ a = (rng.random((70, 90)) < 0.5).astype(np.uint8)
 b = (rng.random((90, 50)) < 0.5).astype(np.uint8)
 C = mt.mul(mt.from_numpy(a, device="cpu"), mt.from_numpy(b, device="cpu"))
 assert (mt.to_numpy(C) == (a.astype(np.int64) @ b.astype(np.int64)) % 2).all()
+A = mt.from_numpy(a, device="cpu")
+M, P, Q, r = mt.ple(A, nb=32)
+assert r == mt.rank(A) == mt.block_factor(A, preserve_l=False, engine="hopper")[3]
+assert not _build.BUILD.exists() or not any(_build.BUILD.glob("*.so")), "the CPU path built something"
 import torch
 assert not torch.cuda.is_available()
 for make in (lambda: mt.zeros(4, 4), lambda: mt.identity(4),
@@ -71,7 +97,7 @@ print("child ok")
 
 def test_port_runs_with_jax_blocked():
     """In a fresh interpreter where ``import jax`` and ``import m4ri_tpu``
-    fail, the port imports, multiplies on the CPU, and refuses to make a
+    fail, the port imports, multiplies and factors on the CPU, and refuses to make a
     matrix on a card that is not there."""
     import torch
     if torch.cuda.is_available():

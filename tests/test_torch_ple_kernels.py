@@ -1,0 +1,287 @@
+"""The plain versions of the port's four factorization kernels against the
+Pallas kernels they replace, run in interpret mode at the cases of
+test_pallas.py.  On the CPU a wrapper takes its plain version, so calling the
+wrappers here tests exactly what the CPU path of the port runs.  Equality of
+packed words and of every index array, tolerance 0."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+import m4ri_tpu as mj
+import m4ri_tpu_torch as mt
+from m4ri_tpu.models import ple as jple
+from m4ri_tpu.ops import pallas_panel
+from m4ri_tpu.ops.pallas_post import panel_post
+from m4ri_tpu.ops.pallas_schur import gf2_schur_update, gf2_schur_update_dyn
+from m4ri_tpu_torch.models import ple as tple
+from m4ri_tpu_torch.ops import hopper_panel
+from m4ri_tpu_torch.ops.hopper_panel import panel_loop_hopper, panel_loop_plain
+from m4ri_tpu_torch.ops.hopper_post import panel_post_hopper, panel_post_plain
+from m4ri_tpu_torch.ops.hopper_schur import (gf2_schur_update_dyn_hopper,
+                                             gf2_schur_update_hopper,
+                                             gf2_schur_update_plain)
+
+import oracle
+from conftest import random_dense
+from torch_port import assert_same, both, words
+
+
+def _schur_operands(rng, m, k, n, r0, c0):
+    """c, lp, up under the factorization's contract: lp rows above r0 and up
+    columns left of c0 are zero."""
+    c, lp, up = (random_dense(rng, m, n), random_dense(rng, m, k),
+                 random_dense(rng, k, n))
+    lp[:r0] = 0
+    up[:, :c0] = 0
+    return c, lp, up
+
+
+@pytest.mark.parametrize("m,k,n,r0,c0,tm,tnw", [
+    (256, 128, 4096, 0, 0, 64, 32),          # nothing skipped
+    (256, 128, 4096, 64, 1024, 64, 32),      # tile-aligned skip region
+    (256, 128, 4096, 96, 1536, 64, 32),      # bounds inside a tile
+    (256, 128, 4096, 256, 4096, 64, 32),     # everything skipped
+    (512, 256, 2048, 128, 512, 128, 64),     # the production shape class
+    (256, 150, 1024, 64, 0, 64, 32),         # contraction off the word
+])
+def test_plain_equals_pallas_schur(rng, m, k, n, r0, c0, tm, tnw):
+    c, lp, up = _schur_operands(rng, m, k, n, r0, c0)
+    (Jc, Tc), (Jl, Tl), (Ju, Tu) = both(c), both(lp), both(up)
+    want = gf2_schur_update(Jc.data, Jl.data, Ju.data, r0, c0 // 32,
+                            tm=tm, tnw=tnw, interpret=True)
+    got = gf2_schur_update_hopper(Tc.data, Tl.data, Tu.data, r0, c0 // 32)
+    assert got.data_ptr() == Tc.data.data_ptr()       # in place
+    assert_same(want, got)
+    np.testing.assert_array_equal(mt.to_numpy(Tc), c ^ oracle.mul(lp, up))
+
+
+def test_plain_equals_pallas_schur_col_tile_skip(rng):
+    """col_tile_skip changes nothing when the skipped tiles lie left of the
+    zero columns of up; it is counted in the port's 4-word tiles."""
+    m, k, n = 256, 128, 8192
+    c, lp, up = _schur_operands(rng, m, k, n, 64, 128 * 32)
+    (Jc, Tc), (Jl, Tl), (Ju, Tu) = both(c), both(lp), both(up)
+    want = gf2_schur_update(Jc.data, Jl.data, Ju.data, 64, 128, tm=64,
+                            tnw=128, col_tile_skip=1, interpret=True)
+    got = gf2_schur_update_hopper(Tc.data, Tl.data, Tu.data, 64, 128,
+                                  col_tile_skip=32)
+    assert_same(want, got)
+
+
+@pytest.mark.parametrize("r0,c0w", [
+    (0, 0), (100, 16), (256, 128), (512, 128), (37, 5), (511, 127),
+])
+def test_plain_equals_pallas_schur_dyn(rng, r0, c0w):
+    m, nw, kw = 512, 128, 8
+    c, lp, up = _schur_operands(rng, m, kw * 32, nw * 32, r0, c0w * 32)
+    (Jc, Tc), (Jl, Tl), (Ju, Tu) = both(c), both(lp), both(up)
+    want = gf2_schur_update_dyn(Jc.data, Jl.data, Ju.data, r0, c0w,
+                                tm=256, tnw=128, interpret=True)
+    got = gf2_schur_update_dyn_hopper(Tc.data, Tl.data, Tu.data, r0, c0w)
+    assert_same(want, got)
+    if (r0, c0w) == (512, 128):
+        np.testing.assert_array_equal(mt.to_numpy(Tc), c)   # untouched
+
+
+def test_schur_wrappers_take_views_and_tensor_bounds(rng):
+    c, lp, up = _schur_operands(rng, 100, 70, 200, 30, 64)
+    parent = mt.from_numpy(random_dense(rng, 140, 320), device="cpu").data
+    keep = parent.clone()
+    view = parent[20:120, 2:9]
+    view.copy_(mt.from_numpy(c, device="cpu").data)
+    Tl, Tu = mt.from_numpy(lp, device="cpu"), mt.from_numpy(up, device="cpu")
+    gf2_schur_update_hopper(view, Tl.data, Tu.data,
+                            torch.tensor(30, dtype=torch.int32), 2)
+    want = mt.from_numpy(c ^ oracle.mul(lp, up), device="cpu").data
+    keep[20:120, 2:9] = want
+    assert torch.equal(parent, keep)
+
+
+def test_schur_wrappers_raise_on_what_they_do_not_take():
+    c = torch.zeros((128, 8), dtype=torch.int32)
+    lp = torch.zeros((128, 2), dtype=torch.int32)
+    up = torch.zeros((64, 8), dtype=torch.int32)
+    with pytest.raises(ValueError):                       # c of another shape
+        gf2_schur_update_hopper(c[:, :7], lp, up, 0, 0)
+    with pytest.raises(TypeError):
+        gf2_schur_update_hopper(c.to(torch.int64), lp, up, 0, 0)
+    with pytest.raises(ValueError):                       # skip past the edge
+        gf2_schur_update_hopper(c, lp, up, 0, 8, col_tile_skip=2)
+    with pytest.raises(ValueError):                       # skip past c0w
+        gf2_schur_update_hopper(c, lp, up, 0, 3, col_tile_skip=1)
+    with pytest.raises(ValueError):                       # rows off the tile
+        gf2_schur_update_dyn_hopper(c[:100], lp[:100], up, 0, 0)
+    with pytest.raises(ValueError):                       # words off the tile
+        gf2_schur_update_dyn_hopper(c[:, :6], lp, up[:, :6], 0, 0)
+
+
+# ---- the panel pivot loop ---------------------------------------------------
+
+def _window(rng, h, nb, zero=None, bit31=False):
+    x = random_dense(rng, h, nb)
+    if bit31:
+        x[:, 31::32] = 1
+    if zero:
+        x[zero[0]:zero[1]] = 0
+    return x
+
+
+_PANEL_CASES = [
+    # h, nb, preserve_l, search_window, zeroed rows, r0, base, m
+    (96, 64, False, 0, None, 0, 0, 96),
+    (96, 64, True, 0, None, 5, 5, 90),           # rows past m never pivot
+    (96, 64, True, 0, (8, 70), 3, 3, 99),        # not-found steps
+    (160, 64, False, 32, (10, 60), 4, 4, 164),   # restricted search
+    (200, 32, True, 0, None, 17, 0, 190),        # full-height convention
+]
+
+
+@pytest.mark.parametrize("engine", ["pallas_interpret", "xla"])
+@pytest.mark.parametrize("h,nb,pres,sw,zero,r0,base,m", _PANEL_CASES)
+def test_plain_equals_pallas_panel_loop(rng, engine, h, nb, pres, sw, zero,
+                                        r0, base, m):
+    """Against the interpreted Mosaic kernel and against the colstep loop,
+    through both packages' run_panel_loop (which adds base and the panel's
+    column offset to p and q).  The colstep loop leaves 0 in the pivot slots
+    it never wrote where the kernel path leaves the offsets, so against it p
+    and q are compared on the slots of the pivots found, which is all a
+    caller reads."""
+    x = _window(rng, h, nb, zero, bit31=True)
+    Jx, Tx = both(x)
+    t = 3
+    want = jple.run_panel_loop(Jx.data, jnp.int32(r0), jnp.int32(base),
+                               jnp.int32(t), jnp.int32(r0), m, nb, pres, sw,
+                               engine)
+    for eng in ("plain", "hopper"):
+        got = tple.run_panel_loop(Tx.data, r0, base, t, m, nb, pres, sw, eng)
+        for w, g, what in zip(want, got, ["AL", "rowperm", "r", "touched",
+                                          "p", "q"]):
+            if what == "AL":
+                assert_same(w, g, what)
+                continue
+            w, g = np.asarray(w), g.numpy()
+            if engine == "xla" and what in ("p", "q"):
+                live = int(want[2]) - r0
+                w, g = w[:live], g[:live]
+            np.testing.assert_array_equal(w, g, err_msg=f"{eng}: {what}")
+
+
+def test_panel_tables_equal_the_jax_tables():
+    for nb, pres in [(32, True), (64, False), (128, True)]:
+        jw, jl = pallas_panel._tables(nb, pres)
+        tw, tl = hopper_panel._tables(nb, pres)
+        np.testing.assert_array_equal(jw, tw.view(np.uint32))
+        np.testing.assert_array_equal(jl, tl.view(np.uint32))
+
+
+def test_panel_loop_takes_the_rank_as_a_tensor(rng):
+    al0 = torch.cat([mt.from_numpy(_window(rng, 80, 32), device="cpu").data,
+                     torch.zeros((80, 1), dtype=torch.int32)], dim=1)
+    a = panel_loop_hopper(al0, 6, 2, 80, 32, True)
+    b = panel_loop_plain(al0, torch.tensor(6, dtype=torch.int32), 2, 80, 32,
+                         True)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    assert a[2].dtype == torch.int32 and a[2].ndim == 0
+
+
+def test_panel_loop_raises_on_what_it_does_not_take():
+    al0 = torch.zeros((40, 4), dtype=torch.int32)
+    with pytest.raises(ValueError):                       # width is not 2*nbw
+        panel_loop_hopper(al0, 0, 0, 40, 32, True)
+    with pytest.raises(ValueError):                       # nb off the word
+        panel_loop_hopper(al0, 0, 0, 40, 48, True)
+    with pytest.raises(TypeError):
+        panel_loop_hopper(al0.to(torch.int64), 0, 0, 40, 64, True)
+    with pytest.raises(ValueError):                       # wider than the kernel takes
+        panel_loop_hopper(torch.zeros((8, 2 * 65), dtype=torch.int32), 0, 0,
+                          8, 65 * 32, True)
+
+
+# ---- the below-window elimination ------------------------------------------
+
+@pytest.mark.parametrize("m,nb,below0,mvalid,cm_density", [
+    (512, 64, 192, 500, 0.2),      # the case of test_pallas.py
+    (512, 64, 192, 500, 0.0),      # miss check switched off
+    (256, 128, 0, 256, 0.5),       # every row in range
+    (256, 32, 256, 256, 0.5),      # no row in range: pure pass-through
+])
+def test_plain_equals_pallas_post(rng, m, nb, below0, mvalid, cm_density):
+    x = random_dense(rng, m, nb)
+    x[:, 31::32] = 1
+    msm = (rng.random((nb, nb)) < 0.5).astype(np.int8)
+    wm = (rng.random((nb, nb)) < 0.5).astype(np.int8)
+    cmb = (rng.random(nb) < cm_density).astype(np.int8)
+    Jx, Tx = both(x)
+    want = panel_post(Jx.data, jnp.asarray(msm), jnp.asarray(wm),
+                      jnp.asarray(cmb), below0, mvalid, tm=256,
+                      interpret=True)
+    args = (torch.from_numpy(msm), torch.from_numpy(wm), torch.from_numpy(cmb),
+            below0, mvalid)
+    for fn in (panel_post_hopper, panel_post_plain):
+        vw, lamw, miss = fn(Tx.data, *args)
+        assert_same(want[0], vw, "v")
+        assert_same(want[1], lamw, "lam")
+        assert bool(miss) == bool(want[2])
+        assert miss.dtype == torch.bool and miss.ndim == 0
+    # and the definition itself, on the host
+    rows = (np.arange(m) >= below0) & (np.arange(m) < mvalid)
+    lam = (x.astype(np.int64) @ msm.astype(np.int64)) % 2
+    lam[~rows] = 0
+    v = x ^ (lam @ wm.astype(np.int64)) % 2
+    np.testing.assert_array_equal(mt.to_numpy(mt.BitMatrix(vw, nb)), v)
+    assert bool(miss) == bool((v * cmb[None, :])[rows].any())
+
+
+def test_post_takes_a_strided_view(rng):
+    nb, m = 64, 130
+    x = random_dense(rng, m, nb)
+    parent = mt.from_numpy(random_dense(rng, m, 5 * 32), device="cpu").data
+    view = parent[:, 2:4]
+    view.copy_(mt.from_numpy(x, device="cpu").data)
+    msm, wm = (torch.from_numpy((rng.random((nb, nb)) < 0.5).astype(np.int8))
+               for _ in range(2))
+    cmb = torch.zeros(nb, dtype=torch.int8)
+    a = panel_post_hopper(view, msm, wm, cmb, 40, 120)
+    b = panel_post_hopper(view.contiguous(), msm, wm, cmb, 40, 120)
+    for x_, y_ in zip(a, b):
+        assert torch.equal(x_, y_)
+
+
+def test_post_raises_on_what_it_does_not_take():
+    xw = torch.zeros((64, 2), dtype=torch.int32)
+    sq = torch.zeros((64, 64), dtype=torch.int8)
+    cm = torch.zeros(64, dtype=torch.int8)
+    with pytest.raises(TypeError):                        # operands not int8
+        panel_post_hopper(xw, sq.to(torch.int32), sq, cm, 0, 64)
+    with pytest.raises(TypeError):                        # of another size
+        panel_post_hopper(xw, sq[:32], sq, cm, 0, 64)
+    with pytest.raises(TypeError):
+        panel_post_hopper(xw.to(torch.int64), sq, sq, cm, 0, 64)
+    with pytest.raises(TypeError):                        # colmask of another size
+        panel_post_hopper(xw, sq, sq, cm[:32], 0, 64)
+
+
+def test_cpu_tensors_launch_nothing(rng):
+    """A launch is counted where a kernel is launched and nowhere else."""
+    fns = (gf2_schur_update_hopper, gf2_schur_update_dyn_hopper,
+           panel_loop_hopper, panel_post_hopper)
+    before = [f.launches for f in fns]
+    A = mt.from_numpy(random_dense(rng, 150, 130), device="cpu")
+    mt.block_factor(A, preserve_l=True, nb=32, engine="hopper")
+    c = torch.zeros((128, 4), dtype=torch.int32)
+    gf2_schur_update_dyn_hopper(c, torch.zeros((128, 1), dtype=torch.int32),
+                                torch.zeros((32, 4), dtype=torch.int32), 0, 0)
+    assert [f.launches for f in fns] == before
+
+
+def test_schur_plain_is_in_place(rng):
+    c, lp, up = _schur_operands(rng, 40, 33, 70, 0, 0)
+    Tc, Tl, Tu = (mt.from_numpy(x, device="cpu") for x in (c, lp, up))
+    out = gf2_schur_update_plain(Tc.data, Tl.data, Tu.data)
+    assert out is Tc.data
+    np.testing.assert_array_equal(words(mj.from_numpy(c ^ oracle.mul(lp, up))),
+                                  words(out))

@@ -41,7 +41,7 @@ import m4ri_tpu_torch as m4
 from m4ri_tpu_torch.benches.probe_mma import probe as probe_mma
 from m4ri_tpu_torch.core.bitmatrix import BitMatrix, mask_padding
 from m4ri_tpu_torch.models import ple as ple_mod
-from m4ri_tpu_torch.ops import _build, hopper_panel
+from m4ri_tpu_torch.ops import _build, hopper_panel, hopper_post
 from m4ri_tpu_torch.ops.hopper_mul import gf2_mul_hopper, gf2_mul_plain
 from m4ri_tpu_torch.ops.hopper_mul2 import gf2_mul_hopper_v2
 from m4ri_tpu_torch.ops.hopper_panel import panel_loop_hopper, panel_loop_plain
@@ -277,6 +277,7 @@ def kernel_entry(name: str, bad: int, main: dict, **more) -> dict:
 # and at n=32768 (nb=1024, W=1088)
 M_PAD_16K, W_PAD_16K, NB_16K, WIN_16K = 17152, 512, 512, 576
 M_PAD_32K, NB_32K, WIN_32K = 34048, 1024, 1088
+M_PAD_64K = 66816      # the padded height of a 65536-row input at nb=1024
 
 
 def schur_bound(m: int, k: int, nw: int, r0: int, c0w: int, skip: int) -> dict:
@@ -403,68 +404,119 @@ def phase_schur_kernels(rng) -> dict:
     return report
 
 
-def window_words(rng, h: int, nb: int, zero=None) -> torch.Tensor:
-    """A fused [panel | L] window: random panel words, L half zero."""
+def window_words(rng, h: int, nb: int, zero=None, zero_cols=(),
+                 l_random: bool = False) -> torch.Tensor:
+    """A fused [panel | L] window: random panel words, optionally a band of
+    zero rows and columns without any 1; the L half zero or random."""
     x = packed(rng, h, nb)
     if zero:
         x[zero[0]:zero[1]] = 0
-    return torch.cat([x, torch.zeros_like(x)], dim=1)
+    for c in zero_cols:
+        x[:, c // 32] &= ~(1 << (c % 32)) if c % 32 < 31 else 0x7FFFFFFF
+    lh = packed(rng, h, nb) if l_random else torch.zeros_like(x)
+    return torch.cat([x, lh], dim=1)
 
 
 def phase_panel_kernel(rng) -> dict:
     """The pivot-loop kernel against the plain loop: every output equal."""
     name, bad, checked = "panel_loop_hopper", 0, []
-    cases = [  # h, nb, preserve_l, search_window, zeroed rows
-        (WIN_16K, NB_16K, False, 0, None), (WIN_16K, NB_16K, True, 0, None),
-        (WIN_32K, NB_32K, False, 0, None), (WIN_32K, NB_32K, True, 0, None),
-        (640, NB_16K, False, 64, (10, 300)),         # restricted search
-        (WIN_16K, NB_16K, True, 0, (40, 330)),       # not-found steps
-        (M_PAD_16K, NB_16K, True, 0, (100, 9000)),   # window in device memory
-        (M_PAD_32K, NB_32K, False, 0, (0, 20000))]
+    no_pivot_group = tuple(range(64, 96))      # a word column without a 1
+    straddle = (3, 40, 41, 70) + tuple(range(200, 215))   # slots behind columns
+    cases = [  # h, nb, preserve_l, search_window, zeroed rows, window options
+        (WIN_16K, NB_16K, False, 0, None, {}), (WIN_16K, NB_16K, True, 0, None, {}),
+        (WIN_32K, NB_32K, False, 0, None, {}), (WIN_32K, NB_32K, True, 0, None, {}),
+        (640, NB_16K, False, 64, (10, 300), {}),      # restricted search
+        (WIN_16K, NB_16K, True, 0, (40, 330), {}),    # steps that find nothing
+        (WIN_16K, NB_16K, True, 0, None, dict(zero_cols=no_pivot_group)),
+        (WIN_16K, NB_16K, False, 0, None,
+         dict(zero_cols=straddle, l_random=True)),
+        (WIN_32K, NB_32K, True, 0, (1000, 1060), dict(zero_cols=straddle)),
+        (M_PAD_16K, NB_16K, True, 0, (100, 9000), {}),   # the cooperative grid
+        (M_PAD_16K, NB_16K, False, 0, (1000, 9000), dict(zero_cols=straddle)),
+        (M_PAD_32K, NB_32K, False, 0, (0, 20000), {}),
+        (M_PAD_32K, NB_32K, True, 0, (1000, 20000), {}),
+        # the word column in device scratch: forced on a short window, then
+        # at a height whose word column no block's shared memory holds
+        (M_PAD_64K, NB_32K, True, 0, (500, 40000), {}),
+        (M_PAD_64K, NB_32K, False, 0, (0, 30000), dict(zero_cols=straddle))]
+    al0 = window_words(rng, WIN_32K, NB_32K, (100, 900), zero_cols=straddle)
+    want = panel_loop_plain(al0, 0, 0, WIN_32K - 5, NB_32K, True, 0)
+    got = hopper_panel._launch(al0, 0, 0, WIN_32K - 5, NB_32K, True, 0, mode=3)
+    for g, w in zip(got, want):
+        bad |= int(g.shape != w.shape or bool((g != w).any()))
+    checked.append(f"h={WIN_32K} nb={NB_32K} mode=tall")
     modes = {}
-    for (h, nb, pres, sw, zero) in cases:
-        al0 = window_words(rng, h, nb, zero)
+    for (h, nb, pres, sw, zero, opts) in cases:
+        al0 = window_words(rng, h, nb, zero, **opts)
         r0, base = 1000, (1000 if h < 8192 else 0)
         m = base + h - 5
         r0_dev = torch.tensor(r0, dtype=torch.int32, device=DEV)
         want = panel_loop_plain(al0, r0, base, m, nb, pres, sw)
-        got = panel_loop_hopper(al0, r0_dev, base, m, nb, pres, sw)
-        torch.cuda.synchronize()
-        for g, w in zip(got, want):
-            bad |= int(g.shape != w.shape or bool((g != w).any()))
+        for rank in (r0_dev, r0):
+            got = panel_loop_hopper(al0, rank, base, m, nb, pres, sw)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                bad |= int(g.shape != w.shape or bool((g != w).any()))
         modes[f"h={h} nb={nb}"] = hopper_panel.window_mode(h, nb)
         checked.append(f"h={h} nb={nb} preserve_l={pres} search_window={sw} "
-                       f"zeroed={zero} found={int(got[2]) - r0}")
+                       f"zeroed={zero} {sorted(opts)} found={int(got[2]) - r0}")
     check(bad == 0, f"{name} disagrees with its plain version")
     check(modes[f"h={WIN_16K} nb={NB_16K}"] == "shared"
-          and modes[f"h={WIN_32K} nb={NB_32K}"] == "split"
-          and modes[f"h={M_PAD_16K} nb={NB_16K}"] == "global",
+          and modes[f"h={WIN_32K} nb={NB_32K}"] == "shared"
+          and modes[f"h={M_PAD_16K} nb={NB_16K}"] == "grid"
+          and modes[f"h={M_PAD_32K} nb={NB_32K}"] == "grid"
+          and modes[f"h={M_PAD_64K} nb={NB_32K}"] == "tall"
+          and hopper_panel.window_mode(100_000, NB_16K) == "tall",
           f"unexpected window modes {modes}")
     try:   # a mode that does not fit the card's shared memory is refused
-        hopper_panel._launch(window_words(rng, WIN_32K, NB_32K), 0, 0, WIN_32K,
-                             NB_32K, True, 0, mode=1)
+        hopper_panel._launch(window_words(rng, M_PAD_16K, NB_16K), 0, 0,
+                             M_PAD_16K, NB_16K, True, 0, mode=1)
     except RuntimeError:
         pass
     else:
-        raise Failed("a 283 KB window was taken into shared memory")
+        raise Failed("a 1.1 MB panel was taken into one block's shared memory")
+    try:   # and so is a word column that fits no block's
+        hopper_panel.window_mode(100_000, NB_16K, mode=2)
+    except RuntimeError:
+        pass
+    else:
+        raise Failed("a word column of 400 KB was taken into shared memory")
     shapes = []
-    for (h, nb) in [(WIN_16K, NB_16K), (WIN_32K, NB_32K), (M_PAD_16K, NB_16K)]:
-        al0 = window_words(rng, h, nb)
-        args = (al0, 0, 0, h, nb, True, 0)
+    for (h, nb, zero, r0) in [(WIN_16K, NB_16K, None, 0), (WIN_32K, NB_32K, None, 0),
+                              (M_PAD_16K, NB_16K, None, 0),
+                              (M_PAD_32K, NB_32K, None, 0),
+                              (M_PAD_16K, NB_16K, (600, 2000), 600),
+                              (M_PAD_64K, NB_32K, None, 0),
+                              (M_PAD_64K, NB_32K, (1100, 3000), 1100)]:
+        al0 = window_words(rng, h, nb, zero)
+        args = (al0, r0, 0, h, nb, True, 0)
         t = time_ms(lambda: hopper_panel._launch(*args))
-        floor = time_ms(lambda: hopper_panel._launch(*args, row_work=False))
+        chain = time_ms(lambda: hopper_panel._launch(*args, row_work=False))
         tp = time_ms(lambda: panel_loop_plain(*args), runs=3, warmup=1)
+        # the floor of a chain of nb dependent steps, each a shared-memory
+        # round trip, a ballot and a barrier, at the kernel's block size: the
+        # bound.  Beside it the same chain in one warp (the step of a dense
+        # window needs no block-wide barrier)
+        threads = hopper_panel.kernel_threads(h)
+        floor_block = time_ms(lambda: hopper_panel.chain_floor(nb, threads))
+        floor_warp = time_ms(lambda: hopper_panel.chain_floor(nb, 32))
         # bytes: the window read and written once, the index outputs written
         nbytes = 4 * (2 * h * 2 * (nb // 32) + h + 4 * nb + 1)
-        shapes.append({"h": h, "nb": nb, "mode": hopper_panel.window_mode(h, nb),
+        shapes.append({"h": h, "nb": nb, "zeroed": zero, "rank_at_entry": r0,
+                       "mode": hopper_panel.window_mode(h, nb),
                        "ms": t["median"], "ms_min": t["min"], "ms_max": t["max"],
                        "runs": t["runs"], "plain_ms": tp["median"],
-                       "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
-                       "bound_by": "bytes",
-                       "serial_floor_ms_loop_without_row_work": floor["median"],
+                       "bound_ms": floor_block["median"], "bound_by": "chain",
+                       "chain_floor_ms": floor_block["median"],
+                       "chain_floor_threads": threads,
+                       "warp_chain_floor_ms": floor_warp["median"],
+                       "bytes_bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
+                       "chain_alone_ms_without_group_ends": chain["median"],
                        "us_per_column": t["median"] / nb * 1e3})
     panel_loop_hopper.launches = 0
     report = {name: kernel_entry(name, bad, shapes[0],
+                                 chain_floor_ms=shapes[0]["chain_floor_ms"],
+                                 bytes_bound_ms=shapes[0]["bytes_bound_ms"],
                                  timed_at=[WIN_16K, 2 * NB_16K // 32],
                                  checked=checked, shapes=shapes, modes=modes)}
     emit("kernels_panel", kernels=list(report.values()))
@@ -480,6 +532,14 @@ def phase_post_kernel(rng) -> dict:
             (rng.random((nb, nb)) < 0.5).astype(np.int8)).to(DEV)
             for _ in range(2))
         some = torch.from_numpy((rng.random(nb) < 0.2).astype(np.int8)).to(DEV)
+        # the packing launch alone against its plain version
+        got_pack = hopper_post.pack_operands_hopper(msm, wm, some)
+        torch.cuda.synchronize()
+        for g, w in zip(got_pack, (hopper_post._packed_transposed(msm),
+                                   hopper_post._packed_transposed(wm),
+                                   hopper_post._packed_colmask(some))):
+            bad |= int(g.shape != w.shape or bool((g != w).any()))
+        checked.append(f"nb={nb} packing kernel")
         for cmb, want_miss in ((some, True), (torch.zeros_like(some), False)):
             want = panel_post_plain(xw, msm, wm, cmb, below0, mvalid)
             got = panel_post_hopper(xw, msm, wm, cmb, below0, mvalid)
@@ -504,7 +564,13 @@ def phase_post_kernel(rng) -> dict:
         nbw = nb // 32
         t_bytes = 4 * (3 * m * nbw + 2 * nb * nbw + nbw) / PEAK_BYTES_PER_S * 1e3
         t_ops = 2 * 2 * (mvalid - below0) * nb * nb / PEAK_B1_OPS_PER_S * 1e3
+        t_pack = time_ms(lambda: hopper_post.pack_operands_hopper(msm, wm, some))
+        t_pack_plain = time_ms(lambda: (hopper_post._packed_transposed(msm),
+                                        hopper_post._packed_transposed(wm),
+                                        hopper_post._packed_colmask(some)))
         shapes.append({"m": m, "nb": nb, "rows": [below0, mvalid],
+                       "packing_kernel_ms": t_pack["median"],
+                       "packing_plain_ms": t_pack_plain["median"],
                        "ms": t["median"], "ms_min": t["min"], "ms_max": t["max"],
                        "runs": t["runs"], "plain_ms": tp["median"],
                        "bound_ms": max(t_bytes, t_ops),
@@ -812,6 +878,23 @@ def phase_ple_deficient(seed: int) -> dict:
         out[f"zeroed_band preserve_l={pres}"] = {
             "rank": got[3], "miss_fallbacks": misses, "host_syncs": syncs,
             "launches": launched}
+    # 70,000 rows: the full-height window of a miss is taller than any word
+    # column a block's shared memory holds
+    mt, nt = 70_000, 2048
+    a = packed(rng, mt, nt)
+    a[600:3000] = 0
+    At = m4.from_packed(a, nt)
+    got, launched, syncs, misses = factor_counted(At, True)
+    add_counts(total, launched)
+    want = m4.block_factor(At, preserve_l=True, engine="plain")
+    same_factors(got, want, "zeroed band, 70,000 rows")
+    check(misses > 0, "the zeroed band of the tall input caused no miss fallback")
+    out["zeroed_band 70000x2048"] = {
+        "rank": got[3], "miss_fallbacks": misses, "launches": launched,
+        "full_height_mode": hopper_panel.window_mode(mt, NB_16K)}
+    check(out["zeroed_band 70000x2048"]["full_height_mode"] == "tall",
+          "70,000 rows: the full-height window was not taken in mode tall")
+    del a, At, got, want
     k = 1000
     B = m4.from_packed(packed(rng, n, k), k)
     C = m4.from_packed(packed(rng, k, n), n)
@@ -940,8 +1023,11 @@ def main() -> int:
          miss_fallbacks=ple_mod.block_factor.miss_fallbacks)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys}
-                                  for r in report.values()]}))
+    # what bounds the pivot loop is its chain of steps; bytes go beside it
+    more = ("chain_floor_ms", "bytes_bound_ms")
+    print(json.dumps({"kernels": [
+        {**{k: r[k] for k in keys}, **{k: r[k] for k in more if k in r}}
+        for r in report.values()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,7 +23,8 @@ from ..models import ple as ple_mod
 
 # device kernels by substring of their name -> the stage they belong to
 STAGES = [("panel_kernel", "panel loop (panel_kernel)"),
-          ("post_kernel", "panel post (post_kernel)"),
+          ("post_pack_kernel", "panel post (post_pack_kernel, post_kernel)"),
+          ("post_kernel", "panel post (post_pack_kernel, post_kernel)"),
           ("schur_dyn_kernel", "Schur update (schur_dyn_kernel)"),
           ("schur_kernel", "Schur update (schur_kernel)"),
           ("mul_kernel", "U rows (mul_kernel)"),

@@ -17,18 +17,53 @@
 // packed axis of X, and M^T, W^T arrive packed from the wrapper), stores
 // them, since lam is an output anyway, and reads those same rows back as the
 // left operand of the second product while they are still in cache.  Blocks
-// run in no order, so the miss flag is zeroed by the wrapper on the stream
-// and blocks OR into it with an atomic.
+// run in no order, so the miss flag is zeroed on the stream before the launch
+// and any block that finds a hit sets it.
+//
+// M, W and the column mask arrive as one byte a bit.  post_pack_kernel, one
+// launch ahead on the same stream, writes M^T and W^T packed along the
+// contraction and the packed column mask, and zeroes the flag: a block loads
+// a 32 x 32 tile of bytes with rows coalesced, and each warp then reads one
+// column of the tile and makes its word with one ballot.
 #include "gf2_tile.cuh"
 
 namespace gf2 {
+
+// grid (nb/32, ld, 2), block (32, 32).  Plane z packs src = z ? W : M:
+// dst[j, w] bit b = src[32*w + b, j], rows of dst ld >= nb/32 words apart,
+// the words from nb/32 on zero.  Blocks (x, 0, 0) also pack word x of the
+// column mask, and block (0, 0, 0) zeroes the flag.
+__global__ void __launch_bounds__(1024)
+post_pack_kernel(const int8_t* __restrict__ m_small,
+                 const int8_t* __restrict__ wmat,
+                 const int8_t* __restrict__ colmask_bits,
+                 uint32_t* __restrict__ mt, uint32_t* __restrict__ wt, long ld,
+                 uint32_t* __restrict__ colmask, unsigned char* miss, int nb) {
+  __shared__ int8_t tile[32][33];
+  const int lane = threadIdx.x, wr = threadIdx.y;
+  const int j0 = blockIdx.x * 32, w = blockIdx.y;
+  const bool real = w < nb / 32;       // else a padding word of the row
+  const int8_t* src = blockIdx.z ? wmat : m_small;
+  uint32_t* dst = blockIdx.z ? wt : mt;
+  if (real) tile[wr][lane] = src[(long)(32 * w + wr) * nb + j0 + lane];
+  __syncthreads();
+  const unsigned word = __ballot_sync(0xffffffffu, real && (tile[lane][wr] & 1));
+  if (lane == 0) dst[(long)(j0 + wr) * ld + w] = word;
+  if (blockIdx.z == 0 && blockIdx.y == 0 && wr == 0) {
+    const unsigned cm = __ballot_sync(0xffffffffu, colmask_bits[j0 + lane] & 1);
+    if (lane == 0) {
+      colmask[blockIdx.x] = cm;
+      if (blockIdx.x == 0) *miss = 0;
+    }
+  }
+}
 
 __global__ void __launch_bounds__(THREADS, 2)
 post_kernel(const uint32_t* __restrict__ x, long ldx, bool vec_x, int m,
             int nbw, const uint32_t* __restrict__ mt,
             const uint32_t* __restrict__ wt, long ldt,
             const uint32_t* __restrict__ colmask, uint32_t* __restrict__ v,
-            long ldv, uint32_t* lam, long ldlam, bool vec_lam, int* miss,
+            long ldv, uint32_t* lam, long ldlam, bool vec_lam, unsigned char* miss,
             int below0, int mvalid) {
   extern __shared__ __align__(16) uint32_t smem[];
   const int m0 = blockIdx.x * BM;
@@ -68,28 +103,69 @@ post_kernel(const uint32_t* __restrict__ x, long ldx, bool vec_x, int m,
     });
     __syncthreads();
   }
-  if (hit) atomicOr(miss, 1);
+  if (hit) *miss = 1;   // every writer writes the same byte
+}
+
+inline cudaError_t launch_pack(const void* m_small, const void* wmat,
+                               const void* colmask_bits, uint32_t* mt,
+                               uint32_t* wt, long ld, uint32_t* colmask,
+                               void* miss, int nb, cudaStream_t stream) {
+  if (nb < 32 || nb % 32 || ld < nb / 32 || ld > 65535)
+    return cudaErrorInvalidValue;
+  post_pack_kernel<<<dim3(nb / 32, (unsigned)ld, 2), dim3(32, 32), 0, stream>>>(
+      static_cast<const int8_t*>(m_small), static_cast<const int8_t*>(wmat),
+      static_cast<const int8_t*>(colmask_bits), mt, wt, ld, colmask,
+      static_cast<unsigned char*>(miss), nb);
+  return cudaGetLastError();
 }
 
 }  // namespace gf2
 
-// x: [m, nbw] words, row stride ldx; mt, wt: M^T and W^T packed along the
-// contraction, [32*nbw, ldt] words each, ldt >= nbw and a multiple of 4,
-// 16-byte aligned; colmask: [nbw] words; v, lam: [m, nbw] outputs; miss: one
-// int on the device, zero before the launch.  Returns cudaGetLastError().
+// Words a packed row of M^T or W^T takes: a multiple of 4 (16 bytes).
+static long post_row_words(int nb) { return (nb / 32 + 3) / 4 * 4; }
+
+// Words of scratch for M^T, W^T and the packed column mask.
+extern "C" long gf2_panel_post_scratch_words(int nb) {
+  return 2L * nb * post_row_words(nb) + (nb / 32 + 3) / 4 * 4;
+}
+
+// The whole call, two launches on the stream: packing, then elimination.
+// x: [m, nbw] words, row stride ldx; m_small, wmat: [nb, nb] bytes of 0/1,
+// contiguous, nb = 32 * nbw; colmask_bits: [nb] bytes; scratch:
+// gf2_panel_post_scratch_words(nb) words, 16-byte aligned; v, lam: [m, nbw]
+// contiguous outputs; miss: one byte on the device (0 or 1 afterwards).
+// Returns cudaGetLastError().
 extern "C" int gf2_panel_post_hopper_launch(
-    const void* x, long ldx, const void* mt, const void* wt, long ldt,
-    const void* colmask, void* v, long ldv, void* lam, long ldlam, void* miss,
+    const void* x, long ldx, const void* m_small, const void* wmat,
+    const void* colmask_bits, void* scratch, void* v, void* lam, void* miss,
     int m, int nbw, int below0, int mvalid, void* stream) {
   using namespace gf2;
-  cudaError_t err = allow_smem(post_kernel);
+  const int nb = nbw * 32;
+  const long ld = post_row_words(nb);
+  uint32_t* mt = static_cast<uint32_t*>(scratch);
+  uint32_t* wt = mt + (long)nb * ld;
+  uint32_t* colmask = wt + (long)nb * ld;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = launch_pack(m_small, wmat, colmask_bits, mt, wt, ld,
+                                colmask, miss, nb, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  post_kernel<<<(m + BM - 1) / BM, THREADS, SMEM_BYTES,
-                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(x), ldx, aligned16(x, ldx), m, nbw,
-      static_cast<const uint32_t*>(mt), static_cast<const uint32_t*>(wt), ldt,
-      static_cast<const uint32_t*>(colmask), static_cast<uint32_t*>(v), ldv,
-      static_cast<uint32_t*>(lam), ldlam, aligned16(lam, ldlam),
-      static_cast<int*>(miss), below0, mvalid);
+  err = allow_smem(post_kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  post_kernel<<<(m + BM - 1) / BM, THREADS, SMEM_BYTES, st>>>(
+      static_cast<const uint32_t*>(x), ldx, aligned16(x, ldx), m, nbw, mt, wt,
+      ld, colmask, static_cast<uint32_t*>(v), (long)nbw,
+      static_cast<uint32_t*>(lam), (long)nbw, aligned16(lam, (long)nbw),
+      static_cast<unsigned char*>(miss), below0, mvalid);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The packing launch alone.  mt, wt: [nb, ld] words out, ld >= nb/32;
+// colmask: [nb/32] words out; miss: one byte, zeroed.
+extern "C" int gf2_panel_post_pack_launch(
+    const void* m_small, const void* wmat, const void* colmask_bits, void* mt,
+    void* wt, long ld, void* colmask, void* miss, int nb, void* stream) {
+  return static_cast<int>(gf2::launch_pack(
+      m_small, wmat, colmask_bits, static_cast<uint32_t*>(mt),
+      static_cast<uint32_t*>(wt), ld, static_cast<uint32_t*>(colmask), miss,
+      nb, static_cast<cudaStream_t>(stream)));
 }

@@ -9,13 +9,22 @@ and returns
 the window (the caller adds ``base`` and the panel's column offset).
 
 What bounds it on an H100: the chain of nb dependent steps, not bytes or
-operations.  The kernel (csrc/gf2_panel_hopper.cu) gives the window to one
-thread block, keeps it in shared memory when it fits (all of it, or the
-panel half with the L half in device memory) and works in device memory when
-it does not, as for the full-height window of the miss fallback.
+operations.  The kernel (csrc/gf2_panel_hopper.cu) takes the columns in
+groups of 32: inside a group a step touches one word a row, in shared
+memory whatever the window's height, and the update of all other words
+waits for the group's end, where it is one parallel pass.  Mode "shared":
+one thread block, the panel half in shared memory (the windows of the fast
+path, h = 576 and 1088).  Mode "grid": a cooperative grid over the panel in
+device memory, the chain on one block and the group-end pass on all (the
+full-height window of the miss fallback).  Mode "tall": the grid with the
+chain's word column in device scratch instead of shared memory, for windows
+above about 48,000 rows.  A window of any height fits one of them; a mode
+asked for that does not fit is refused.  ``r0 >= base`` is the contract: an
+int below it raises, a device value below it is taken as ``base``.
 
 The plain version runs ``colstep`` nb times with tensor operations only (no
 value is read back to the host); it is also the engine on the CPU.
+``panel_loop_grouped_plain`` is the same function in the kernel's schedule.
 """
 
 from __future__ import annotations
@@ -28,9 +37,11 @@ import torch
 
 from ..utils.config import WORD_BITS
 
-__all__ = ["panel_loop_hopper", "panel_loop_plain", "MODES"]
+__all__ = ["panel_loop_hopper", "panel_loop_plain",
+           "panel_loop_grouped_plain", "MODES"]
 
-MODES = {1: "shared", 2: "split", 3: "global"}   # where the window lives
+# one block; a cooperative grid; the grid with the word column in scratch
+MODES = {1: "shared", 2: "grid", 3: "tall"}
 _MAX_NBW = 64                                     # MAX_NBW of the kernel
 
 
@@ -118,7 +129,116 @@ def panel_loop_plain(al0: torch.Tensor, r0, base: int, m: int, nb: int,
     return AL, rowperm, r, touched, p_pan, q_pan
 
 
-_VOID, _INT = ctypes.c_void_p, ctypes.c_int
+def _net_permutation(swaps):
+    """The transpositions (rs, ps) of one group, applied in order, as one
+    gather: position dst[i] ends up with the row that sat at src[i]."""
+    content = {}
+    for rs, ps in swaps:
+        a, b = content.get(rs, rs), content.get(ps, ps)
+        content[rs], content[ps] = b, a
+    dst = np.fromiter(content, dtype=np.int64, count=len(content))
+    src = np.array([content[d] for d in dst], dtype=np.int64)
+    return dst, src
+
+
+def panel_loop_grouped_plain(al0: torch.Tensor, r0, base: int, m: int,
+                             nb: int, preserve_l: bool,
+                             search_window: int = 0):
+    """The same function in the schedule the kernel follows (numpy, for the
+    tests): columns in groups of 32 = one packed word column.  Inside a
+    group the chain of steps sees one word a row; each step logs its pivot's
+    column, its masked pivot word and its swap.  At the group's end the
+    swaps move whole rows as one gather, every row replays the group on its
+    own word (which gives its multiplier word), the pivot rows' multipliers
+    resolve into combinations of the *raw* pivot rows, every lower row takes
+    the XOR of the raw pivot rows its combination selects on the other
+    words, and its multiplier word lands in the L half at the group's first
+    slot (across two words if need be).  ``r0 >= base`` is assumed."""
+    _check(al0, nb)
+    dev = al0.device
+    AL = al0.detach().cpu().contiguous().numpy().view(np.uint32).copy()
+    h, nbw = AL.shape[0], nb // WORD_BITS
+    pan, lh = AL[:, :nbw], AL[:, nbw:]
+    full = np.uint32(0xFFFFFFFF)
+    pos = np.arange(h)
+    rowperm = np.arange(h, dtype=np.int32)
+    touched = np.zeros(2 * nb, np.int32)
+    p_pan, q_pan = np.zeros(nb, np.int32), np.zeros(nb, np.int32)
+    r_in = r = int(r0)
+    if r_in < base:
+        raise ValueError(f"r0={r_in} lies above the window's base {base}")
+    for g in range(nbw):
+        c = pan[:, g].copy()             # all the chain reads and writes
+        rl0, slot0 = r - base, r - r_in
+        shs, pvs, swaps = [], [], []
+        for sh in range(WORD_BITS):
+            j = WORD_BITS * g + sh
+            rl = r - base
+            rs = min(rl, h - 1)
+            hi = min(h, m - base)
+            if search_window:
+                hi = min(hi, rl + search_window)
+            cand = np.flatnonzero((((c >> np.uint32(sh)) & 1) == 1)
+                                  & (pos >= rl) & (pos < hi))
+            found = cand.size > 0
+            ps = int(cand[0]) if found else rs
+            touched[2 * j : 2 * j + 2] = rs, ps
+            p_pan[r - r_in], q_pan[r - r_in] = ps, j
+            if not found:
+                continue
+            keep = full if not preserve_l else \
+                np.uint32(0) if sh == 31 else full << np.uint32(sh + 1)
+            pv = c[ps] & keep
+            c[ps] = c[rs]                # slot rs is dead to the chain now
+            take = (pos > rl) & (((c >> np.uint32(sh)) & 1) == 1)
+            c[take] ^= pv
+            shs.append(np.uint32(sh))
+            pvs.append(pv)
+            swaps.append((rs, ps))
+            r += 1
+        K = len(shs)
+        if K == 0:
+            continue
+        dst, src = _net_permutation(swaps)
+        AL[dst] = AL[src]
+        rowperm[dst] = rowperm[src]
+        raw = pan[rl0 : rl0 + K].copy()  # the pivot rows, not yet up to date
+        comb = []                        # pivot k = XOR of raw rows comb[k]
+        for k in range(K):
+            x, t = raw[k, g], np.uint32(1 << k)
+            for k2 in range(k):
+                if (x >> shs[k2]) & 1:
+                    x ^= pvs[k2]
+                    t ^= comb[k2]
+            comb.append(t)
+        rows = np.arange(rl0, h)
+        x = pan[rows, g].copy()
+        mu = np.zeros(rows.size, np.uint32)
+        sel = np.zeros(rows.size, np.uint32)
+        for k in range(K):               # a pivot row stops at its own step
+            act = (rows - rl0 > k) & (((x >> shs[k]) & 1) == 1)
+            x[act] ^= pvs[k]
+            mu[act] |= np.uint32(1 << k)
+            sel[act] ^= comb[k]
+        pan[rows, g] = x
+        ws = [w for w in range(nbw) if (w > g if preserve_l else w != g)]
+        for k in range(K):
+            hit = rows[((sel >> np.uint32(k)) & 1) == 1]
+            if ws and hit.size:
+                pan[np.ix_(hit, ws)] ^= raw[k, ws][None, :]
+        lw, s = divmod(slot0, WORD_BITS)
+        wide = mu.astype(np.uint64) << np.uint64(s)
+        lh[rows, lw] ^= (wide & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+        if lw + 1 < nbw:
+            lh[rows, lw + 1] ^= (wide >> np.uint64(32)).astype(np.uint32)
+    ints = dict(dtype=torch.int32, device=dev)
+    return (torch.from_numpy(AL.view(np.int32)).to(dev),
+            torch.from_numpy(rowperm).to(dev), torch.tensor(r, **ints),
+            torch.from_numpy(touched).to(dev), torch.from_numpy(p_pan).to(dev),
+            torch.from_numpy(q_pan).to(dev))
+
+
+_VOID, _INT, _LONG = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
 
 
 @functools.lru_cache(maxsize=None)
@@ -126,15 +246,23 @@ def _fns():
     from ._build import load
     lib = load("gf2_panel_hopper")
     launch, mode = lib.gf2_panel_loop_hopper_launch, lib.gf2_panel_loop_hopper_mode
-    launch.argtypes = [_VOID] * 8 + [_INT] * 8 + [_VOID]
+    scratch, floor, threads = (lib.gf2_panel_loop_hopper_scratch_words,
+                               lib.gf2_panel_chain_floor_launch,
+                               lib.gf2_panel_loop_hopper_threads)
+    launch.argtypes = [_VOID] * 9 + [_INT] * 9 + [_VOID]
     mode.argtypes = [_INT] * 3
-    launch.restype = mode.restype = _INT
-    return launch, mode
+    scratch.argtypes = [_INT] * 2
+    floor.argtypes = [_INT, _INT, _VOID, _VOID]
+    threads.argtypes = [_INT]
+    launch.restype = mode.restype = floor.restype = threads.restype = _INT
+    scratch.restype = _LONG
+    return launch, mode, scratch, floor, threads
 
 
 def window_mode(h: int, nb: int, mode: int = 0) -> str:
-    """Where the kernel keeps a window of h rows on the current card:
-    "shared", "split" or "global".  Builds the kernel if need be."""
+    """How the kernel runs a window of h rows on the current card: a value
+    of MODES.  Raises if the mode asked for does not fit.  Builds the kernel
+    if need be."""
     got = _fns()[1](mode, h, nb // WORD_BITS)
     if got not in MODES:
         raise RuntimeError(f"a window of {h} rows, nb={nb}, does not fit "
@@ -145,31 +273,59 @@ def window_mode(h: int, nb: int, mode: int = 0) -> str:
 def _launch(al0, r0, base, m, nb, preserve_l, search_window, mode=0,
             row_work=True):
     """Launch the kernel.  ``mode``: 0 lets the kernel choose, else a key of
-    MODES, refused when it does not fit.  ``row_work=False`` leaves the update
-    of the lower rows out (timing of the serial skeleton only)."""
+    MODES, refused when it does not fit.  ``row_work=False`` leaves every
+    group's end out (timing of the chain alone; the outputs are then not the
+    function's)."""
     dev = al0.device
-    h = al0.shape[0]
+    h, w2 = al0.shape
+    nbw = nb // WORD_BITS
     al0 = al0.contiguous()
-    al = torch.empty_like(al0)
-    ints = dict(dtype=torch.int32, device=dev)
-    rowperm = torch.empty(h, **ints)
-    touched = torch.empty(2 * nb, **ints)
-    p_pan, q_pan = torch.empty(nb, **ints), torch.empty(nb, **ints)
-    r_out = torch.empty((), **ints)
-    r_in = _scalar(r0, dev)
-    launch = _fns()[0]
+    launch, _, scratch_words = _fns()[:3]
+    # every output and the scratch from one allocation, cut into views
+    sizes = (h * w2, h, 2 * nb, nb, nb, 1, scratch_words(h, nbw))
+    offs = [0]
+    for n in sizes:
+        offs.append(offs[-1] + n)
+    buf = torch.empty(offs[-1], dtype=torch.int32, device=dev)
+    al = buf.as_strided((h, w2), (w2, 1), 0)
+    rowperm, touched, p_pan, q_pan = (
+        buf.as_strided((sizes[k],), (1,), offs[k]) for k in (1, 2, 3, 4))
+    r_out = buf.as_strided((), (), offs[5])
+    ptr = [buf.data_ptr() + 4 * o for o in offs]
+    if isinstance(r0, torch.Tensor):   # read on the card, no round trip
+        r_dev = r0.to(device=dev, dtype=torch.int32)
+        r_ptr, r_val = r_dev.data_ptr(), 0
+    else:
+        r_ptr, r_val = None, int(r0)
+        if r_val < base:
+            raise ValueError(f"r0={r0} lies above the window's base {base}")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = launch(al0.data_ptr(), al.data_ptr(), rowperm.data_ptr(),
-                     r_out.data_ptr(), touched.data_ptr(), p_pan.data_ptr(),
-                     q_pan.data_ptr(), r_in.data_ptr(), base, m, h,
-                     nb // WORD_BITS, int(bool(preserve_l)), search_window,
-                     mode, int(row_work), stream)
+        err = launch(al0.data_ptr(), ptr[0], ptr[1], ptr[5], ptr[2], ptr[3],
+                     ptr[4], r_ptr, ptr[6],
+                     base, m, h, nbw, int(bool(preserve_l)), search_window,
+                     mode, int(row_work), r_val, stream)
     panel_loop_hopper.launches += 1
     if err:
         raise RuntimeError(f"panel_loop_hopper: CUDA error {err} at launch "
                            f"(h={h}, nb={nb}, mode={mode})")
     return al, rowperm, r_out, touched, p_pan, q_pan
+
+
+def chain_floor(steps: int, threads: int) -> None:
+    """Launch the probe of the chain's floor: ``steps`` dependent steps of a
+    barrier, a warp ballot and a shared-memory round trip in one block of
+    ``threads`` threads.  For timing; needs the card."""
+    out = torch.zeros(1, dtype=torch.int32, device="cuda")
+    err = _fns()[3](steps, threads, out.data_ptr(),
+                    torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"chain_floor: CUDA error {err} at launch")
+
+
+def kernel_threads(h: int) -> int:
+    """The block size the kernel takes for a window of h rows."""
+    return _fns()[4](h)
 
 
 def panel_loop_hopper(al0: torch.Tensor, r0, base: int, m: int, nb: int,

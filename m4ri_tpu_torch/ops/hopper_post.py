@@ -14,9 +14,12 @@ miss)``: packed v, packed lam, and a 0-dim bool tensor.
 What bounds it on an H100: bytes; three panels of words against a
 microsecond of 1-bit MMA.  The kernel (csrc/gf2_post_hopper.cu) reads X
 once, forms lam and v a 128-row tile at a time with the packed tile product,
-writes both once and ORs the miss flag into one device int.  The wrapper
-hands it the two small operands transposed and packed, which is the layout
-the 1-bit MMA wants for a right operand.
+writes both once and sets the miss flag, one device byte.  It wants the
+two small operands transposed and packed along the contraction, the layout
+of a right operand of the 1-bit MMA: a packing kernel of the same source
+makes them, the packed column mask and the zeroed flag in one launch ahead
+of it, so that a call is two launches (``_packed_transposed`` and
+``_packed_colmask`` are that kernel's plain versions).
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ import torch
 from ..utils.config import WORD_BITS
 from .mul import _dot_parity, pack_bits, unpack_bits
 
-__all__ = ["panel_post_hopper", "panel_post_plain"]
+__all__ = ["panel_post_hopper", "panel_post_plain", "pack_operands_hopper"]
 
 _MAX_GRID_X = 2**31 - 1
 _TILE_ROWS = 128  # BM of csrc/gf2_tile.cuh
@@ -66,7 +69,7 @@ def panel_post_plain(xw: torch.Tensor, m_small: torch.Tensor,
     lamw = torch.where(
         rows, _dot_parity(unpack_bits(xw), m_small.to(torch.float32)), 0)
     vw = xw ^ _dot_parity(unpack_bits(lamw), wmat.to(torch.float32))
-    colmask = pack_bits(colmask_bits[None, :].to(torch.int32))[0]
+    colmask = _packed_colmask(colmask_bits)
     miss = (torch.where(rows, vw & colmask[None, :], 0) != 0).any()
     return vw, lamw, miss
 
@@ -75,24 +78,67 @@ _VOID, _LONG, _INT = ctypes.c_void_p, ctypes.c_long, ctypes.c_int
 
 
 @functools.lru_cache(maxsize=None)
-def _fn():
+def _fns():
     from ._build import load
-    fn = load("gf2_post_hopper").gf2_panel_post_hopper_launch
-    fn.argtypes = [_VOID, _LONG, _VOID, _VOID, _LONG, _VOID, _VOID, _LONG,
-                   _VOID, _LONG, _VOID, _INT, _INT, _INT, _INT, _VOID]
-    fn.restype = _INT
-    return fn
+    lib = load("gf2_post_hopper")
+    post, pack = lib.gf2_panel_post_hopper_launch, lib.gf2_panel_post_pack_launch
+    post.argtypes = [_VOID, _LONG] + [_VOID] * 7 + [_INT] * 4 + [_VOID]
+    pack.argtypes = [_VOID] * 5 + [_LONG, _VOID, _VOID, _INT, _VOID]
+    scratch = lib.gf2_panel_post_scratch_words
+    scratch.argtypes, scratch.restype = [_INT], _LONG
+    post.restype = pack.restype = _INT
+    return post, pack, scratch
+
+
+def _row_words(nb: int) -> int:
+    """Words a packed row of M^T or W^T takes: a multiple of 4 (16 bytes)."""
+    return (nb // WORD_BITS + 3) // 4 * 4
+
+
+@functools.lru_cache(maxsize=None)
+def _scratch_words(nb: int) -> int:
+    """Words the kernels want for M^T, W^T and the packed column mask."""
+    return _fns()[2](nb)
 
 
 def _packed_transposed(bits: torch.Tensor) -> torch.Tensor:
     """0/1 int8 [nb, nb] -> its transpose packed along the contraction,
-    int32 [nb, ld] with ld a multiple of 4 words (16-byte rows)."""
+    int32 [nb, ld] with ld a multiple of 4 words (16-byte rows).  The plain
+    version of the packing kernel."""
     nb = bits.shape[0]
     nbw = nb // WORD_BITS
-    out = torch.zeros((nb, (nbw + 3) // 4 * 4), dtype=torch.int32,
+    out = torch.zeros((nb, _row_words(nb)), dtype=torch.int32,
                       device=bits.device)
     out[:, :nbw] = pack_bits(bits.t().to(torch.int32))
     return out
+
+
+def _packed_colmask(colmask_bits: torch.Tensor) -> torch.Tensor:
+    """0/1 int8 [nb] -> int32 [nb/32].  Plain version, as above."""
+    return pack_bits(colmask_bits[None, :].to(torch.int32))[0].contiguous()
+
+
+def pack_operands_hopper(m_small: torch.Tensor, wmat: torch.Tensor,
+                         colmask_bits: torch.Tensor):
+    """The packing kernel alone: (M^T packed, W^T packed, packed column
+    mask), as ``_packed_transposed`` / ``_packed_colmask`` give them.  CUDA
+    tensors only."""
+    nb = m_small.shape[0]
+    ld, nbw = _row_words(nb), nb // WORD_BITS
+    buf = torch.empty(2 * nb * ld + nbw + 1, dtype=torch.int32,
+                      device=m_small.device)
+    mt, wt = (buf.as_strided((nb, ld), (ld, 1), k * nb * ld) for k in (0, 1))
+    colmask = buf.as_strided((nbw,), (1,), 2 * nb * ld)
+    m_small, wmat, colmask_bits = (t.contiguous()       # no copy if dense
+                                   for t in (m_small, wmat, colmask_bits))
+    with torch.cuda.device(buf.device):
+        err = _fns()[1](m_small.data_ptr(), wmat.data_ptr(),
+                        colmask_bits.data_ptr(), mt.data_ptr(), wt.data_ptr(),
+                        ld, colmask.data_ptr(), buf[-1:].data_ptr(), nb,
+                        torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"pack_operands_hopper: CUDA error {err} at launch")
+    return mt, wt, colmask
 
 
 def panel_post_hopper(xw: torch.Tensor, m_small: torch.Tensor,
@@ -100,30 +146,36 @@ def panel_post_hopper(xw: torch.Tensor, m_small: torch.Tensor,
                       below0: int, mvalid: int):
     """Fused elimination of the rows below the window; see the module text
     for the contract.  ``xw`` may be a view with any row stride.  CPU tensors
-    take the plain version; CUDA tensors launch the kernel or raise."""
+    take the plain version; CUDA tensors launch the kernels or raise.  On the
+    card the call is two hand-written launches (packing, elimination) from
+    one call into the library, and two allocations: the flag, and one that
+    vw, lamw and the packed operands are cut from."""
     _check(xw, m_small, wmat, colmask_bits)
     if not xw.is_cuda:
         return panel_post_plain(xw, m_small, wmat, colmask_bits, below0, mvalid)
     m, nbw = xw.shape
     dev = xw.device
-    vw = torch.empty((m, nbw), dtype=torch.int32, device=dev)
-    lamw = torch.empty((m, nbw), dtype=torch.int32, device=dev)
-    miss = torch.zeros((), dtype=torch.int32, device=dev)  # zeroed on the stream
+    body = (m * nbw + 3) // 4 * 4           # keeps every part 16-byte aligned
+    buf = torch.empty(2 * body + _scratch_words(nbw * WORD_BITS),
+                      dtype=torch.int32, device=dev)
+    vw = buf.as_strided((m, nbw), (nbw, 1), 0)
+    lamw = buf.as_strided((m, nbw), (nbw, 1), body)
+    miss = torch.empty((), dtype=torch.bool, device=dev)
     if m == 0 or nbw == 0:
-        return vw, lamw, miss != 0
-    mt, wt = _packed_transposed(m_small), _packed_transposed(wmat)
-    colmask = pack_bits(colmask_bits[None, :].to(torch.int32))[0].contiguous()
-    fn = _fn()
+        return vw, lamw, miss.zero_()
+    m_small, wmat, colmask_bits = (t.contiguous()       # no copy if dense
+                                   for t in (m_small, wmat, colmask_bits))
+    base = buf.data_ptr()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(xw.data_ptr(), xw.stride(0), mt.data_ptr(), wt.data_ptr(),
-                 mt.stride(0), colmask.data_ptr(), vw.data_ptr(), vw.stride(0),
-                 lamw.data_ptr(), lamw.stride(0), miss.data_ptr(), m, nbw,
-                 int(below0), int(mvalid), stream)
+        err = _fns()[0](xw.data_ptr(), xw.stride(0), m_small.data_ptr(),
+                        wmat.data_ptr(), colmask_bits.data_ptr(),
+                        base + 8 * body, base, base + 4 * body,
+                        miss.data_ptr(), m, nbw, int(below0), int(mvalid),
+                        torch.cuda.current_stream().cuda_stream)
     panel_post_hopper.launches += 1
     if err:
         raise RuntimeError(f"panel_post_hopper: CUDA error {err} at launch")
-    return vw, lamw, miss != 0
+    return vw, lamw, miss
 
 
 panel_post_hopper.launches = 0

@@ -1,4 +1,4 @@
-"""The port's two CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels against their plain versions, on the card.
 
 Needs an NVIDIA GPU and ``nvcc``; every test here is marked ``cuda`` and
 skips with a reason where there is no card.  Run it on a machine with one:
@@ -159,36 +159,123 @@ def test_schur_skips_whole_tiles_only(card, kernel):
     assert torch.equal(c, want)
 
 
-def _window(card, seed, h, nb, zero=None):
+def _window(card, seed, h, nb, zero=None, zero_cols=(), l_random=False):
+    """A fused [panel | L] window.  ``zero``: a band of zero rows;
+    ``zero_cols``: panel columns without any 1 (steps that find nothing, so
+    the L slots run behind the columns and straddle words; 32 of them in one
+    word make a group without a pivot); ``l_random``: an L half that is not
+    zero on entry."""
     rng = np.random.default_rng(seed)
     x = rng.integers(0, 2**32, (h, nb // 32), dtype=np.uint64).astype(np.uint32)
     if zero:
         x[zero[0]:zero[1]] = 0
-    al0 = np.concatenate([x, np.zeros_like(x)], axis=1)
+    for c in zero_cols:
+        x[:, c // 32] &= ~np.uint32(1 << (c % 32))
+    lh = rng.integers(0, 2**32, x.shape, dtype=np.uint64).astype(np.uint32) \
+        if l_random else np.zeros_like(x)
+    al0 = np.concatenate([x, lh], axis=1)
     return torch.from_numpy(al0.view(np.int32)).to(card)
 
 
-@pytest.mark.parametrize("h,nb,preserve_l,sw,zero,mode", [
-    (96, 64, False, 0, None, 0), (96, 64, True, 0, None, 0),
-    (576, 512, True, 0, None, 0), (576, 512, False, 0, (40, 300), 0),
-    (1088, 1024, True, 0, None, 0), (640, 512, False, 64, (10, 200), 0),
-    (576, 512, True, 0, None, 3), (1088, 1024, False, 0, (100, 900), 2),
-    (3000, 512, True, 0, (5, 2000), 0),
+_NO_PIVOT_GROUP = tuple(range(64, 96))          # word column 2 all zero
+_STRADDLE = (3, 40, 41, 70) + tuple(range(200, 215))
+
+
+@pytest.mark.parametrize("h,nb,preserve_l,sw,zero,mode,extra", [
+    (96, 64, False, 0, None, 0, {}), (96, 64, True, 0, None, 0, {}),
+    (576, 512, True, 0, None, 0, {}), (576, 512, False, 0, (40, 300), 0, {}),
+    (1088, 1024, True, 0, None, 0, {}), (1088, 1024, False, 0, None, 0, {}),
+    (640, 512, False, 64, (10, 200), 0, {}),
+    (640, 512, True, 64, (10, 200), 2, {}),
+    (576, 512, True, 0, None, 2, {}),            # the grid on a short window
+    (1088, 1024, False, 0, (100, 900), 2, {}),
+    (3000, 512, True, 0, (5, 2000), 0, {}),
+    (5000, 1024, False, 0, (5, 3000), 0, {}),    # too tall for one block
+    (17152, 512, True, 0, (100, 9000), 0, {}),
+    (576, 512, True, 0, None, 1, dict(zero_cols=_NO_PIVOT_GROUP)),
+    (576, 512, False, 0, None, 2, dict(zero_cols=_NO_PIVOT_GROUP)),
+    (576, 512, True, 0, None, 1, dict(zero_cols=_STRADDLE)),
+    (576, 512, False, 0, None, 2, dict(zero_cols=_STRADDLE)),
+    (576, 512, True, 0, None, 0, dict(l_random=True)),
+    (2000, 512, False, 0, (3, 900), 2, dict(l_random=True, zero_cols=_STRADDLE)),
+    (40, 2048, False, 0, None, 0, {}),           # wider than tall
+    (200, 96, True, 5, None, 0, {}),             # a search window of 5 rows
+    # the word column in device scratch: forced on short windows, every step
+    # of a group on the slow path, then chosen by the kernel at a height whose
+    # word column no block holds
+    (576, 512, True, 0, (40, 300), 3, {}),
+    (1088, 1024, False, 0, (100, 900), 3, dict(zero_cols=_STRADDLE)),
+    (2000, 512, True, 64, (3, 900), 3, dict(l_random=True)),
+    (3000, 512, False, 0, (5, 2000), 3, dict(zero_cols=_NO_PIVOT_GROUP)),
+    (66816, 1024, True, 0, (500, 40000), 0, {}),
+    (66816, 1024, False, 0, (0, 30000), 0, dict(zero_cols=_STRADDLE)),
 ])
-def test_panel_loop_equals_plain(card, h, nb, preserve_l, sw, zero, mode):
-    al0 = _window(card, 50, h, nb, zero)
+def test_panel_loop_equals_plain(card, h, nb, preserve_l, sw, zero, mode, extra):
+    al0 = _window(card, 50, h, nb, zero, **extra)
     r0, base, m = 7, 7, h - 3 + 7
     want = hopper_panel.panel_loop_plain(al0, r0, base, m, nb, preserve_l, sw)
-    got = hopper_panel._launch(al0, r0, base, m, nb, preserve_l, sw, mode=mode)
+    for rank in (r0, torch.tensor(r0, dtype=torch.int32, device=card)):
+        got = hopper_panel._launch(al0, rank, base, m, nb, preserve_l, sw,
+                                   mode=mode)
+        torch.cuda.synchronize()
+        for g, w, what in zip(got, want,
+                              ["AL", "rowperm", "r", "touched", "p", "q"]):
+            assert g.shape == w.shape and torch.equal(g, w), what
+
+
+def test_panel_loop_full_height_convention(card):
+    """base = 0 and a rank well inside the window, as the miss fallback
+    calls it; rows at positions >= m never pivot."""
+    al0 = _window(card, 52, 4352, 512, (600, 2000))
+    want = hopper_panel.panel_loop_plain(al0, 512, 0, 4096, 512, True)
+    got = hopper_panel.panel_loop_hopper(al0, 512, 0, 4096, 512, True)
     torch.cuda.synchronize()
-    for g, w, what in zip(got, want, ["AL", "rowperm", "r", "touched", "p", "q"]):
-        assert torch.equal(g, w), what
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_panel_loop_modes(card):
+    assert hopper_panel.window_mode(576, 512) == "shared"
+    assert hopper_panel.window_mode(1088, 1024) == "shared"
+    assert hopper_panel.window_mode(17152, 512) == "grid"
+    assert hopper_panel.window_mode(34048, 1024) == "grid"
+    assert hopper_panel.window_mode(66816, 1024) == "tall"
+    assert hopper_panel.window_mode(100_000, 512) == "tall"
 
 
 def test_panel_loop_refuses_a_mode_that_does_not_fit(card):
-    al0 = _window(card, 51, 1088, 1024)
-    with pytest.raises(RuntimeError):
-        hopper_panel._launch(al0, 0, 0, 1088, 1024, True, 0, mode=1)
+    al0 = _window(card, 51, 17152, 512)
+    with pytest.raises(RuntimeError):             # 1.1 MB of panel in one block
+        hopper_panel._launch(al0, 0, 0, 17152, 512, True, 0, mode=1)
+    with pytest.raises(RuntimeError):             # a word column of 400 KB
+        hopper_panel.window_mode(100_000, 512, mode=2)
+    with pytest.raises(ValueError):               # the rank above the window
+        hopper_panel._launch(al0, 3, 5, 17152, 512, True, 0)
+
+
+def test_panel_loop_takes_a_device_rank_above_the_window_as_its_base(card):
+    al0 = _window(card, 53, 576, 512, (40, 300))
+    want = hopper_panel.panel_loop_plain(al0, 5, 5, 570, 512, True)
+    for mode in (1, 2, 3):
+        got = hopper_panel._launch(
+            al0, torch.tensor(3, dtype=torch.int32, device=card), 5, 570, 512,
+            True, 0, mode=mode)
+        torch.cuda.synchronize()                  # and the card is still there
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("nb", [32, 96, 512, 1024])
+def test_post_packing_equals_plain(card, nb):
+    rng = np.random.default_rng(63)
+    msm, wm = (torch.from_numpy((rng.random((nb, nb)) < 0.5).astype(np.int8)).to(card)
+               for _ in range(2))
+    cmb = torch.from_numpy((rng.random(nb) < 0.3).astype(np.int8)).to(card)
+    mt, wt, colmask = hopper_post.pack_operands_hopper(msm, wm, cmb)
+    torch.cuda.synchronize()
+    assert torch.equal(mt, hopper_post._packed_transposed(msm))
+    assert torch.equal(wt, hopper_post._packed_transposed(wm))
+    assert torch.equal(colmask, hopper_post._packed_colmask(cmb))
 
 
 @pytest.mark.parametrize("m,nb,below0,mvalid,force", [
@@ -229,3 +316,20 @@ def test_factorization_equals_plain_engine(card):
         for g, w in zip(got[:3], want[:3]):
             assert torch.equal(g, w)
         assert got[3] == want[3]
+
+
+def test_factorization_of_70000_rows_with_a_deficient_window(card):
+    """The miss fallback's full-height window is taller than any word column
+    a block's shared memory holds."""
+    import m4ri_tpu_torch as mt
+    a = _packed(71, 70_000, 1024, card)
+    a[600:3000] = 0
+    A = mt.from_packed(a, 1024)
+    want = mt.block_factor(A, preserve_l=True, engine="plain")
+    before = mt.block_factor.miss_fallbacks
+    got = mt.block_factor(A, preserve_l=True)
+    assert mt.block_factor.miss_fallbacks > before
+    assert hopper_panel.window_mode(70_000, 512) == "tall"
+    for g, w in zip(got[:3], want[:3]):
+        assert torch.equal(g, w)
+    assert got[3] == want[3]

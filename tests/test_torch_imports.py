@@ -116,3 +116,16 @@ def test_chip_smoke_refuses_without_a_card():
                          cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert res.returncode != 0
     assert res.stdout.strip() == ""
+
+
+def test_every_kernel_source_is_built_in_one_variant():
+    """The build takes a source's name and nothing else, no flag defines a
+    macro and no source asks for one: what is timed is what is shipped."""
+    import inspect
+
+    from m4ri_tpu_torch.ops import _build
+    assert list(inspect.signature(_build.load).parameters) == ["name"]
+    assert list(inspect.signature(_build.build).parameters) == ["names"]
+    assert not [f for f in _build.NVCC_FLAGS if f.startswith("-D")]
+    for src in (PKG / "csrc").glob("*.cu*"):
+        assert "#ifdef" not in src.read_text(), src.name

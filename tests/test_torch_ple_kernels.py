@@ -18,7 +18,10 @@ from m4ri_tpu.ops.pallas_post import panel_post
 from m4ri_tpu.ops.pallas_schur import gf2_schur_update, gf2_schur_update_dyn
 from m4ri_tpu_torch.models import ple as tple
 from m4ri_tpu_torch.ops import hopper_panel
-from m4ri_tpu_torch.ops.hopper_panel import panel_loop_hopper, panel_loop_plain
+from m4ri_tpu_torch.ops import hopper_post
+from m4ri_tpu_torch.ops.hopper_panel import (panel_loop_grouped_plain,
+                                             panel_loop_hopper,
+                                             panel_loop_plain)
 from m4ri_tpu_torch.ops.hopper_post import panel_post_hopper, panel_post_plain
 from m4ri_tpu_torch.ops.hopper_schur import (gf2_schur_update_dyn_hopper,
                                              gf2_schur_update_hopper,
@@ -139,34 +142,129 @@ _PANEL_CASES = [
 ]
 
 
+_PANEL_OUTPUTS = ["AL", "rowperm", "r", "touched", "p", "q"]
+
+
+def _jax_panel_loop(Jx, engine, t, h, nb, pres, sw, r0, base, m):
+    return jple.run_panel_loop(Jx.data, jnp.int32(r0), jnp.int32(base),
+                               jnp.int32(t), jnp.int32(r0), m, nb, pres, sw,
+                               engine)
+
+
+def _assert_panel_outputs(want, got, engine, r0, who):
+    """The colstep loop (engine "xla") leaves 0 in the pivot slots it never
+    wrote where the kernel path leaves the offsets, so against it p and q are
+    compared on the slots of the pivots found, which is all a caller reads."""
+    for w, g, what in zip(want, got, _PANEL_OUTPUTS):
+        if what == "AL":
+            assert_same(w, g, what)
+            continue
+        w, g = np.asarray(w), g.numpy()
+        if engine == "xla" and what in ("p", "q"):
+            live = int(want[2]) - r0
+            w, g = w[:live], g[:live]
+        np.testing.assert_array_equal(w, g, err_msg=f"{who}: {what}")
+
+
 @pytest.mark.parametrize("engine", ["pallas_interpret", "xla"])
 @pytest.mark.parametrize("h,nb,pres,sw,zero,r0,base,m", _PANEL_CASES)
 def test_plain_equals_pallas_panel_loop(rng, engine, h, nb, pres, sw, zero,
                                         r0, base, m):
     """Against the interpreted Mosaic kernel and against the colstep loop,
     through both packages' run_panel_loop (which adds base and the panel's
-    column offset to p and q).  The colstep loop leaves 0 in the pivot slots
-    it never wrote where the kernel path leaves the offsets, so against it p
-    and q are compared on the slots of the pivots found, which is all a
-    caller reads."""
+    column offset to p and q)."""
     x = _window(rng, h, nb, zero, bit31=True)
     Jx, Tx = both(x)
     t = 3
-    want = jple.run_panel_loop(Jx.data, jnp.int32(r0), jnp.int32(base),
-                               jnp.int32(t), jnp.int32(r0), m, nb, pres, sw,
-                               engine)
+    want = _jax_panel_loop(Jx, engine, t, h, nb, pres, sw, r0, base, m)
     for eng in ("plain", "hopper"):
         got = tple.run_panel_loop(Tx.data, r0, base, t, m, nb, pres, sw, eng)
-        for w, g, what in zip(want, got, ["AL", "rowperm", "r", "touched",
-                                          "p", "q"]):
-            if what == "AL":
-                assert_same(w, g, what)
-                continue
-            w, g = np.asarray(w), g.numpy()
-            if engine == "xla" and what in ("p", "q"):
-                live = int(want[2]) - r0
-                w, g = w[:live], g[:live]
-            np.testing.assert_array_equal(w, g, err_msg=f"{eng}: {what}")
+        _assert_panel_outputs(want, got, engine, r0, eng)
+
+
+@pytest.mark.parametrize("engine", ["pallas_interpret", "xla"])
+@pytest.mark.parametrize("h,nb,pres,sw,zero,r0,base,m", _PANEL_CASES)
+def test_grouped_plain_equals_pallas_panel_loop(rng, engine, h, nb, pres, sw,
+                                                zero, r0, base, m):
+    """The plain model of the kernel's schedule (32-column groups, delayed
+    update) against the JAX panel loop, as the test above holds the
+    step-by-step plain version to it."""
+    x = _window(rng, h, nb, zero, bit31=True)
+    Jx, Tx = both(x)
+    t = 3
+    want = _jax_panel_loop(Jx, engine, t, h, nb, pres, sw, r0, base, m)
+    al0 = torch.cat([Tx.data, torch.zeros_like(Tx.data)], dim=1)
+    got = list(panel_loop_grouped_plain(al0, r0, base, m, nb, pres, sw))
+    got[4], got[5] = base + got[4], t * nb + got[5]
+    _assert_panel_outputs(want, got, engine, r0, "grouped")
+
+
+def _fused(x, l_random=None):
+    """[panel | L] from dense panel bits; the L half zero or random words."""
+    xw = mt.from_numpy(x, device="cpu").data
+    lh = torch.zeros_like(xw) if l_random is None else torch.from_numpy(
+        l_random.integers(-2**31, 2**31, tuple(xw.shape)).astype(np.int32))
+    return torch.cat([xw, lh], dim=1)
+
+
+def _grouped_case(rng, kind):
+    """(al0, r0, base, m, nb, search_window) of one hard case of the schedule."""
+    h, nb = 150, 96
+    x = random_dense(rng, h, nb)
+    r0 = base = 4
+    sw = 0
+    if kind == "group_without_a_pivot":
+        x[:, 32:64] = 0                         # the middle word column
+    elif kind == "pivot_in_a_later_slot_row":
+        x[:, 0] = 0                             # column 0: only row 20, which
+        x[20, 0] = 1                            # is a slot row of the group
+    elif kind == "slots_straddle_an_l_word":
+        x[:, [3, 17, 18, 40]] = 0               # slots run behind the columns
+    elif kind == "rs_equals_ps":
+        x[np.arange(nb), np.arange(nb)] = 1     # the pivot is at the slot
+    elif kind == "search_window":
+        x[6:40] = 0
+        sw = 30
+    elif kind == "narrow_search_window":
+        sw = 3
+    elif kind == "zero_band_below_the_slot":
+        x[4:100] = 0                            # nothing within 64 rows
+    elif kind == "rank_runs_past_the_window":
+        h = 60
+        x = x[:h]                               # nb > h: the slot leaves it
+    elif kind == "rows_past_m":
+        return _fused(x, rng), r0, base, 40, nb, sw
+    elif kind == "full_height_convention":
+        return _fused(x, rng), 30, 0, 140, nb, sw
+    return _fused(x, rng), r0, base, base + h - 2, nb, sw
+
+
+@pytest.mark.parametrize("pres", [False, True])
+@pytest.mark.parametrize("kind", [
+    "random", "group_without_a_pivot", "pivot_in_a_later_slot_row",
+    "slots_straddle_an_l_word", "rs_equals_ps", "search_window",
+    "narrow_search_window", "zero_band_below_the_slot",
+    "rank_runs_past_the_window", "rows_past_m", "full_height_convention"])
+def test_grouped_plain_equals_plain(rng, kind, pres):
+    """Every output of the grouped schedule equals the step-by-step loop's,
+    on an L half that is not zero on entry."""
+    al0, r0, base, m, nb, sw = _grouped_case(rng, kind)
+    want = panel_loop_plain(al0, r0, base, m, nb, pres, sw)
+    got = panel_loop_grouped_plain(al0, r0, base, m, nb, pres, sw)
+    for w, g, what in zip(want, got, _PANEL_OUTPUTS):
+        assert w.shape == g.shape and w.dtype == g.dtype, what
+        assert torch.equal(w, g), what
+    if kind == "group_without_a_pivot":
+        assert not (want[5][: int(want[2]) - r0] // 32 == 1).any()
+    if kind == "rs_equals_ps":
+        t = want[3].reshape(-1, 2)
+        assert (t[:, 0] == t[:, 1]).any()
+
+
+def test_grouped_plain_refuses_a_rank_above_the_window():
+    al0 = torch.zeros((8, 2), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        panel_loop_grouped_plain(al0, 2, 3, 8, 32, True)
 
 
 def test_panel_tables_equal_the_jax_tables():
@@ -249,6 +347,24 @@ def test_post_takes_a_strided_view(rng):
     b = panel_post_hopper(view.contiguous(), msm, wm, cmb, 40, 120)
     for x_, y_ in zip(a, b):
         assert torch.equal(x_, y_)
+
+
+@pytest.mark.parametrize("nb", [32, 96, 256])
+def test_post_packing_plain_equals_numpy_packbits(rng, nb):
+    """The plain versions of the packing kernel: the transpose packed along
+    the contraction with rows padded to 4 words, and the packed mask."""
+    bits = (rng.random((nb, nb)) < 0.5).astype(np.int8)
+    cmb = (rng.random(nb) < 0.3).astype(np.int8)
+    got = hopper_post._packed_transposed(torch.from_numpy(bits))
+    nbw = nb // 32
+    assert got.shape == (nb, (nbw + 3) // 4 * 4) and got.dtype == torch.int32
+    want = np.packbits(bits.T.astype(np.uint8), axis=1, bitorder="little")
+    want = np.ascontiguousarray(want).view(np.uint32)
+    np.testing.assert_array_equal(words(got)[:, :nbw], want)
+    assert not words(got)[:, nbw:].any()
+    got_cm = hopper_post._packed_colmask(torch.from_numpy(cmb))
+    want_cm = np.packbits(cmb.astype(np.uint8), bitorder="little").view(np.uint32)
+    np.testing.assert_array_equal(words(got_cm), want_cm)
 
 
 def test_post_raises_on_what_it_does_not_take():

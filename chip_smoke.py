@@ -29,6 +29,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -38,6 +39,8 @@ if not torch.cuda.is_available():
              "this script runs on the GPU only")
 
 import m4ri_tpu_torch as m4
+from m4ri_tpu_torch.benches.peaks import (PEAK_B1_OPS_PER_S, PEAK_BYTES_PER_S,
+                                          schur_bound)
 from m4ri_tpu_torch.benches.probe_mma import probe as probe_mma
 from m4ri_tpu_torch.core.bitmatrix import BitMatrix, mask_padding
 from m4ri_tpu_torch.models import ple as ple_mod
@@ -56,14 +59,6 @@ from m4ri_tpu_torch.utils.rng import GlibcRandom, reference_random_data
 
 HERE = pathlib.Path(__file__).resolve().parent
 DEV = torch.device("cuda")
-
-# Peaks of one H100 SXM for the bounds.  NVIDIA's data sheet gives the
-# memory rate and the dense int8 tensor-core rate (1,979 TOP/s) and no 1-bit
-# rate.  Both kernels run the 1-bit instruction (m16n8k256), which issues at
-# the rate of the s8 one (m16n8k32) and contracts 8 times as many elements,
-# so the operand type's peak is taken as 8 times the int8 one.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_B1_OPS_PER_S = 8 * 1979e12
 
 KERNELS = {
     "gf2_mul_hopper": dict(
@@ -275,69 +270,112 @@ def kernel_entry(name: str, bad: int, main: dict, **more) -> dict:
 
 # the padded shape block_factor gives its kernels at n=16384 (nb=512, W=576)
 # and at n=32768 (nb=1024, W=1088)
-M_PAD_16K, W_PAD_16K, NB_16K, WIN_16K = 17152, 512, 512, 576
+M_PAD_16K, NB_16K, WIN_16K = 17152, 512, 576
 M_PAD_32K, NB_32K, WIN_32K = 34048, 1024, 1088
 M_PAD_64K = 66816      # the padded height of a 65536-row input at nb=1024
 
 
-def schur_bound(m: int, k: int, nw: int, r0: int, c0w: int, skip: int) -> dict:
-    """Least time for one Schur update: only the tiles that are active under
-    (r0, c0w) count.  Bytes: those tiles of C read and written, the rows of
-    Lp and the words of Up that meet them, read once.  Operations: 2 per bit
-    of the active rectangle and of the contraction, at the 1-bit peak."""
-    rows = max(0, m - r0 // TILE_ROWS * TILE_ROWS)
-    words = max(0, nw - max(c0w // TILE_WORDS, skip) * TILE_WORDS)
-    if rows == 0 or words == 0:
-        rows = words = 0
-    kw = (k + 31) // 32
-    t_bytes = 4 * (2 * rows * words + rows * kw + k * words) / PEAK_BYTES_PER_S * 1e3
-    t_ops = 2 * rows * k * words * 32 / PEAK_B1_OPS_PER_S * 1e3
-    return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "active_rows": rows, "active_words": words}
+SCHUR = ("gf2_schur_update_hopper", "gf2_schur_update_dyn_hopper")
+# the padded C the sweep updates, its contraction, and the first and the
+# middle panel's bounds (r0, c0w) at n=16384 (nb=512) and n=32768 (nb=1024)
+SCHUR_SHAPES = [(M_PAD_16K, 16384 // 32, NB_16K, [(0, 16), (8192, 272)]),
+                (M_PAD_32K, 32768 // 32, NB_32K, [(0, 32), (16384, 544)])]
+
+
+def schur_bounds(name: str, nw: int, r0: int, c0w: int, bounds: str):
+    """(positional, keyword) arguments after (c, lp, up): ints, with the
+    finished column tiles skipped by the gridded entry as the sweep passes
+    them, or the same bounds as tensors already on the card."""
+    if bounds == "tensor":
+        return (torch.tensor(r0, dtype=torch.int32, device=DEV),
+                torch.tensor(c0w, dtype=torch.int32, device=DEV)), {}
+    if name == "gf2_schur_update_hopper":
+        skip = min(c0w // TILE_WORDS, -(-nw // TILE_WORDS) - 1)
+        return (r0, c0w), {"col_tile_skip": skip}
+    return (r0, c0w), {}
 
 
 def phase_schur_kernels(rng) -> dict:
-    """Both Schur kernels against the plain version at the shape the sweep
-    gives them at n=16384, over the bounds that decide which tiles run."""
-    m, nw, k = M_PAD_16K, W_PAD_16K, NB_16K
-    c0 = packed(rng, m, nw * 32)
-    lp0, up0 = packed(rng, m, k), packed(rng, k, nw * 32)
-    static, dyn = gf2_schur_update_hopper, gf2_schur_update_dyn_hopper
-    bad = {"gf2_schur_update_hopper": 0, "gf2_schur_update_dyn_hopper": 0}
-    checked = []
+    """Both Schur entry points against the plain version at the shapes the
+    sweep gives them at n=16384 and n=32768, over the bounds that decide
+    which tiles run, with the bounds as ints and as tensors on the card;
+    then their times at the first and the middle panel of each sweep."""
+    bad = {name: 0 for name in SCHUR}
+    checked, shapes = [], {name: [] for name in SCHUR}
+    sync_free = None
+    for (m, nw, k, timed) in SCHUR_SHAPES:
+        c0 = packed(rng, m, nw * 32)
+        lp0, up0 = packed(rng, m, k), packed(rng, k, nw * 32)
 
-    def operands(r0, c0w):
-        lp, up = lp0.clone(), up0.clone()
-        lp[:r0] = 0
-        up[:, :c0w] = 0
-        return lp, up
+        def operands(r0, c0w):
+            lp, up = lp0.clone(), up0.clone()
+            lp[:r0] = 0
+            up[:, :c0w] = 0
+            return lp, up
 
-    for (r0, c0w, skip) in [(0, 0, 0), (8192, 256, 0), (8200, 258, 0),
-                            (m, nw, 0), (4096, 128, 32), (4100, 131, 20),
-                            (0, 16, 4)]:
-        lp, up = operands(r0, c0w)
-        want = gf2_schur_update_plain(c0.clone(), lp, up)
-        got = static(c0.clone(), lp, up, r0, c0w, col_tile_skip=skip)
-        got_dyn = dyn(c0.clone(), lp, up, r0, c0w)
-        torch.cuda.synchronize()
-        bad["gf2_schur_update_hopper"] |= int((got != want).any())
-        bad["gf2_schur_update_dyn_hopper"] |= int((got_dyn != want).any())
-        if (r0, c0w) == (m, nw):
-            check(torch.equal(got, c0) and torch.equal(got_dyn, c0),
-                  "a full skip changed C")
-        checked.append(f"r0={r0} c0w={c0w} skip={skip}")
-    # bounds handed over as tensors that are already on the card
-    lp, up = operands(5000, 100)
-    want = gf2_schur_update_plain(c0.clone(), lp, up)
-    r0_t = torch.tensor(5000, dtype=torch.int32, device=DEV)
-    c0w_t = torch.tensor(100, dtype=torch.int32, device=DEV)
-    bad["gf2_schur_update_hopper"] |= int(
-        (static(c0.clone(), lp, up, r0_t, c0w_t) != want).any())
-    bad["gf2_schur_update_dyn_hopper"] |= int(
-        (dyn(c0.clone(), lp, up, r0_t, c0w_t) != want).any())
-    checked.append("bounds as device tensors")
-    # a ragged small shape, C a strided view (the gridded kernel only: the
+        (r1, w1) = timed[1]
+        for (r0, c0w) in [(0, 0), *timed, (r1 + 8, w1 + 3), (m, nw),
+                          (m + 100, 5), (5, nw + 7), (m - 1, nw - 1)]:
+            lp, up = operands(r0, c0w)
+            want = gf2_schur_update_plain(c0.clone(), lp, up)
+            for name in SCHUR:
+                for bounds in ("int", "tensor"):
+                    args, kw = schur_bounds(name, nw, r0, c0w, bounds)
+                    got = KERNELS[name]["fn"](c0.clone(), lp, up, *args, **kw)
+                    torch.cuda.synchronize()
+                    bad[name] |= int((got != want).any())
+                    if r0 >= m or c0w >= nw:
+                        check(torch.equal(got, c0), f"{name}: a full skip changed C")
+            checked.append(f"C {m}x{nw} words k={k} r0={r0} c0w={c0w}, "
+                           "bounds int and tensor")
+        # the skip is decided on whole tiles: with the contract broken on
+        # purpose, tiles wholly above r0 or left of c0w keep their words and
+        # every other tile takes the full product
+        r0, c0w = timed[1][0] + 138, timed[1][1] + 2
+        full = c0 ^ gf2_mul_plain(lp0, up0)
+        want = c0.clone()
+        row_a, word_a = r0 // TILE_ROWS * TILE_ROWS, c0w // TILE_WORDS * TILE_WORDS
+        want[row_a:, word_a:] = full[row_a:, word_a:]
+        for name in SCHUR:
+            got = KERNELS[name]["fn"](c0.clone(), lp0, up0, r0, c0w)
+            torch.cuda.synchronize()
+            bad[name] |= int((got != want).any())
+        checked.append(f"C {m}x{nw} words: whole-tile skip with the contract "
+                       f"broken (r0={r0}, c0w={c0w})")
+        del full, want
+        if sync_free is None:
+            # a call as the sweep makes it may not wait for the card
+            lp, up = operands(*timed[1])
+            c = c0.clone()
+            args, kw = schur_bounds(SCHUR[0], nw, *timed[1], "int")
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                gf2_schur_update_hopper(c, lp, up, *args, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            check(torch.equal(c, gf2_schur_update_plain(c0.clone(), lp, up)),
+                  "the call under sync debug mode differs")
+            sync_free = True
+        # times
+        for (r0, c0w) in timed:
+            lp, up = operands(r0, c0w)
+            c = c0.clone()
+            tp = time_ms(lambda: gf2_schur_update_plain(c, lp, up), runs=3, warmup=1)
+            for name in SCHUR:
+                for bounds in ("int", "tensor"):
+                    args, kw = schur_bounds(name, nw, r0, c0w, bounds)
+                    fn = KERNELS[name]["fn"]
+                    t = time_ms(lambda: fn(c, lp, up, *args, **kw))
+                    shapes[name].append({
+                        "shape": [m, k, nw * 32], "r0": r0, "c0w": c0w,
+                        "bounds": bounds, "ms": t["median"], "ms_min": t["min"],
+                        "ms_max": t["max"], "runs": t["runs"],
+                        "plain_ms": tp["median"],
+                        **schur_bound(m, k, nw, r0, c0w)})
+        del c0, lp0, up0, lp, up, c
+    # a ragged small shape, C a strided view (the gridded entry only: the
     # persistent one takes whole tiles and says so)
     cs, ls, us = packed(rng, 300, 38 * 32 - 7), packed(rng, 300, 150), \
         packed(rng, 150, 38 * 32 - 7)
@@ -347,60 +385,28 @@ def phase_schur_kernels(rng) -> dict:
     keep = parent.clone()
     view = parent[50:350, 11:49]
     view.copy_(cs)
-    static(view, ls, us, 70, 9, col_tile_skip=2)
+    gf2_schur_update_hopper(view, ls, us, 70, 9, col_tile_skip=1)
     torch.cuda.synchronize()
     keep[50:350, 11:49] = gf2_schur_update_plain(cs.clone(), ls, us)
     bad["gf2_schur_update_hopper"] |= int((parent != keep).any())
     try:
-        dyn(cs.clone(), ls, us, 70, 9)
+        gf2_schur_update_dyn_hopper(cs.clone(), ls, us, 70, 9)
     except ValueError:
         pass
     else:
-        raise Failed("the persistent Schur kernel took a ragged shape")
+        raise Failed("the persistent Schur entry took a ragged shape")
     checked.append("ragged 300x38 words, k=150, strided C")
-    # the skip is decided on whole 128 x 4-word tiles: with the contract
-    # broken on purpose, tiles wholly above r0 or left of c0w keep their
-    # words and every other tile takes the full product
-    full = c0 ^ gf2_mul_plain(lp0, up0)
-    want = c0.clone()
-    row_a, word_a = 8330 // TILE_ROWS * TILE_ROWS, 258 // TILE_WORDS * TILE_WORDS
-    want[row_a:, word_a:] = full[row_a:, word_a:]
-    for name, fn in (("gf2_schur_update_hopper", static),
-                     ("gf2_schur_update_dyn_hopper", dyn)):
-        got = fn(c0.clone(), lp0, up0, 8330, 258)
-        torch.cuda.synchronize()
-        bad[name] |= int((got != want).any())
-    checked.append("whole-tile skip with the contract broken")
-    del full, want
-    for name in bad:
+    for name in SCHUR:
         check(bad[name] == 0, f"{name} disagrees with its plain version")
-
-    # times: the first panel of the sweep (nothing above, one panel left) and
-    # the middle of it
     report = {}
-    for name, fn in (("gf2_schur_update_hopper", static),
-                     ("gf2_schur_update_dyn_hopper", dyn)):
-        shapes = []
-        for (r0, c0w) in [(0, 16), (8192, 272)]:
-            lp, up = operands(r0, c0w)
-            c = c0.clone()
-            skip = c0w // TILE_WORDS
-            if fn is static:
-                t = time_ms(lambda: fn(c, lp, up, r0, c0w, col_tile_skip=skip))
-            else:
-                t = time_ms(lambda: fn(c, lp, up, r0, c0w))
-            tp = time_ms(lambda: gf2_schur_update_plain(c, lp, up),
-                         runs=3, warmup=1)
-            shapes.append({"shape": [m, k, nw * 32], "r0": r0, "c0w": c0w,
-                           "ms": t["median"], "ms_min": t["min"],
-                           "ms_max": t["max"], "runs": t["runs"],
-                           "plain_ms": tp["median"],
-                           **schur_bound(m, k, nw, r0, c0w,
-                                         skip if fn is static else 0)})
-        report[name] = kernel_entry(name, bad[name], shapes[0],
-                                    timed_at=shapes[0]["shape"] + [0, 16],
-                                    checked=checked, shapes=shapes)
-    emit("kernels_schur", kernels=list(report.values()))
+    for name in SCHUR:
+        main = shapes[name][0]                 # 16384, first panel, int bounds
+        report[name] = kernel_entry(
+            name, bad[name], main, timed_at=main["shape"] + [0, 16],
+            checked=checked, shapes=shapes[name])
+    emit("kernels_schur", kernels=list(report.values()),
+         int_bounds_call_synchronises=not sync_free,
+         tile=[TILE_ROWS, TILE_WORDS])
     return report
 
 
@@ -805,9 +811,11 @@ def phase_ple_16384(seed: int) -> dict:
         add_counts(total, launched)
         want = m4.block_factor(A, preserve_l=pres, engine="plain")
         same_factors(got, want, f"block_factor 16384 preserve_l={pres}")
+        # the last panel leaves no column to update: its Schur call
+        # launches nothing
         check(launched == {"panel_loop_hopper": panels + misses,
                            "panel_post_hopper": panels,
-                           "gf2_schur_update_hopper": panels,
+                           "gf2_schur_update_hopper": panels - 1,
                            "gf2_schur_update_dyn_hopper": 0,
                            "gf2_mul_hopper": panels},
               f"block_factor 16384 launched {launched} over {panels} panels")
@@ -816,7 +824,21 @@ def phase_ple_16384(seed: int) -> dict:
                                          "host_syncs": syncs,
                                          "miss_fallbacks": misses}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    # the persistent Schur kernel instead of the gridded one
+    # every call that waits for the card, as PyTorch's sync debug mode sees
+    # them, beside the read-backs the sweep counts itself
+    syncs0 = ple_mod.block_factor.host_syncs
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            m4.block_factor(A, preserve_l=True)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    per_run["sync_debug_warn"] = {
+        "synchronising_calls": sum("synchroniz" in str(w.message)
+                                   for w in caught),
+        "host_syncs": ple_mod.block_factor.host_syncs - syncs0}
+    # the persistent Schur entry instead of the gridded one
     got_dyn, launched, _, misses = with_schur_dyn(
         lambda: factor_counted(A, True))
     add_counts(total, launched)
@@ -941,7 +963,7 @@ def phase_ple_32768(seed: int) -> dict:
     check(valid_swaps(P, Q, r, n, n), "ple 32768: P, Q are not swap arrays")
     check(launched["panel_loop_hopper"] == panels + misses
           and launched["panel_post_hopper"] == panels
-          and launched["gf2_schur_update_hopper"] == panels
+          and launched["gf2_schur_update_hopper"] == panels - 1
           and launched["gf2_mul_hopper"] == panels,
           f"ple 32768 launched {launched} over {panels} panels")
     t0 = time.perf_counter()

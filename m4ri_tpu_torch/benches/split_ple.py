@@ -4,7 +4,9 @@ Traces ``block_factor`` and then the L compression of ``ple`` with
 ``torch.profiler`` and prints, for each, the wall time, the device time by
 kernel (the four hand-written kernels by name, PyTorch's own kernels summed
 under what they serve), and the share of the wall time in which the card ran
-nothing.  Needs the card and ``nvcc``:
+nothing.  Beside the Schur update's device time: the sum of its bounds over
+the sweep's calls, each on the exact rectangle the call leaves active
+(``peaks.schur_bound``).  Needs the card and ``nvcc``:
 
     python -m m4ri_tpu_torch.benches.split_ple [n]
 """
@@ -20,13 +22,14 @@ import torch
 
 from ..core.bitmatrix import randomize
 from ..models import ple as ple_mod
+from .peaks import schur_bound
 
+SCHUR = "Schur update (schur_transpose_kernel, schur_kernel)"
 # device kernels by substring of their name -> the stage they belong to
 STAGES = [("panel_kernel", "panel loop (panel_kernel)"),
           ("post_pack_kernel", "panel post (post_pack_kernel, post_kernel)"),
           ("post_kernel", "panel post (post_pack_kernel, post_kernel)"),
-          ("schur_dyn_kernel", "Schur update (schur_dyn_kernel)"),
-          ("schur_kernel", "Schur update (schur_kernel)"),
+          ("schur_transpose_kernel", SCHUR), ("schur_kernel", SCHUR),
           ("mul_kernel", "U rows (mul_kernel)"),
           ("transpose_b_kernel", "B^T pre-pass of U rows and Schur"),
           ("gemm", "small float32 products (torch.matmul)"),
@@ -58,6 +61,29 @@ def _trace(fn):
     return out, wall, stages, total
 
 
+def _schur_sweep_bound(A) -> tuple[float, int]:
+    """(sum of the Schur bounds over one block_factor's calls, calls): the
+    wrappers are wrapped for one untraced run to record their bounds."""
+    calls = []
+    names = ("gf2_schur_update_hopper", "gf2_schur_update_dyn_hopper")
+    saved = {name: getattr(ple_mod, name) for name in names}
+
+    def recorder(fn):
+        def call(c, lp, up, r0, c0w, **kw):
+            calls.append((c.shape[0], up.shape[0], c.shape[1], r0, c0w))
+            return fn(c, lp, up, r0, c0w, **kw)
+        return call
+
+    for name in names:
+        setattr(ple_mod, name, recorder(saved[name]))
+    try:
+        ple_mod.block_factor(A, preserve_l=True)
+    finally:
+        for name in names:
+            setattr(ple_mod, name, saved[name])
+    return sum(schur_bound(*call)["bound_ms"] for call in calls), len(calls)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("n", type=int, nargs="?", default=16384)
@@ -79,6 +105,7 @@ def main() -> None:
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     wall_untraced = sorted(walls)[1]
+    bound_ms, schur_calls = _schur_sweep_bound(A)
     syncs = ple_mod.block_factor.host_syncs
     (data, p, q, r), wall_f, stages_f, dev_f = _trace(
         lambda: ple_mod.block_factor(A, preserve_l=True))
@@ -90,7 +117,10 @@ def main() -> None:
         "block_factor": {"wall_ms_untraced": wall_untraced,
                          "wall_ms_traced": wall_f, "device_ms": dev_f,
                          "idle_share": 1 - dev_f / wall_untraced,
-                         "device_ms_by_stage": stages_f},
+                         "device_ms_by_stage": stages_f,
+                         "schur_device_ms": stages_f.get(SCHUR, 0.0),
+                         "schur_sweep_bound_ms": bound_ms,
+                         "schur_calls": schur_calls},
         "compress_l": {"wall_ms": wall_c, "device_ms": dev_c,
                        "idle_share": 1 - dev_c / wall_c,
                        "device_ms_by_stage": stages_c}}))

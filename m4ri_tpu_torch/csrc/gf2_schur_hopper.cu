@@ -2,133 +2,470 @@
 // skipping the tiles that the factorization has already finished.
 //
 // Replaces the TPU kernels gf2_schur_update (m4ri_tpu/ops/pallas_schur.py,
-// _schur_padded) and gf2_schur_update_dyn (_schur_dyn_padded).  Contract of
-// both: rows of Lp above r0 are zero and words of Up left of c0w are zero, so
-// a tile of C that lies wholly above r0 or wholly left of c0w has a zero
-// delta and is left untouched.  (r0, c0w) are read from device memory.
+// _schur_padded) and gf2_schur_update_dyn (_schur_dyn_padded): one kernel,
+// two entry points.  Contract of both: rows of Lp above r0 are zero and words
+// of Up left of c0w are zero, so a tile of C that lies wholly above r0 or
+// wholly left of c0w has a zero delta and keeps its words; so do the first
+// col_tile_skip column tiles.
 //
-// What bounds it on an H100: bytes.  The contraction is one panel deep
-// (k = 512 or 1024), so a 128 x 128-bit tile of C costs one or two staged
-// steps of the 1-bit MMA and then a read and a write of C; over a whole
-// sweep the untouched tiles are three quarters of C.  So the design is the
-// tile product of gf2_mul_hopper with an XOR-into-C epilogue, and neither
-// kernel ever loads a tile it can skip:
-//   * schur_kernel: a grid over the tiles right of `tile0` (column tiles the
-//     caller knows are finished are not even launched); a block whose tile is
-//     inactive returns before its first load.
-//   * schur_dyn_kernel: a persistent grid of a few blocks an SM; each block
-//     derives the active rectangle from (r0, c0w) and walks its tiles
-//     s = blockIdx.x, += gridDim.x.  Nothing active: zero trips.
-// One block owns a tile and each word of it belongs to one thread, so the
-// XOR is a plain read-modify-write, no atomics.
+// What bounds it on an H100.  One panel of contraction (k = 512 or 1024)
+// against a C of 17152 x 512 or 34048 x 1024 words: by the bound (bytes of
+// C and its operands once, against the 1-bit peak) bytes at nb=512 and
+// operations at nb=1024.  What a kernel also has to move is Up^T once for
+// every row band, from L2, so the bands are tall, and the design keeps the
+// tensor cores fed from registers and hides every load behind them:
+//   * A tile is 256 rows x 8 words (256 columns): a row of it is one 32-byte
+//     sector of C.  Only the tiles of the active rectangle
+//     [r0 / 256, tiles_i) x [max(c0w / 8, skip), tiles_j) exist for the
+//     kernel; a persistent grid of one block an SM takes them in row-major
+//     order, each block one contiguous run (schur_schedule_plain in
+//     ops/hopper_schur.py is the same partition in numpy).  Bounds come by
+//     value or, when the caller has them on the card, by pointer; neither
+//     is ever copied from the host.
+//   * A block is two groups of 8 warps, one on each 128-row half of the
+//     tile, each with its own barrier and C buffers, so that one group
+//     multiplies while the other is in its epilogue.
+//   * Lp: a run crosses one or two row bands, so each warp loads its
+//     fragments of the band (32 rows x k bits) once into registers and
+//     keeps them while the block walks the band's column tiles.  Shared
+//     memory then carries only Up^T, and a warp's MMAs read half the bytes
+//     per instruction that a tile loop staging both operands reads.
+//   * Up^T: the pre-pass writes, for the columns right of the rectangle's
+//     edge only, each column tile's 256 rows x k bits as one contiguous
+//     block, already in the bank-conflict-free (swizzled) order the MMA
+//     loads want; one bulk copy (TMA, mbarrier) brings a tile into a ring of
+//     four stages that both groups read.  The contraction is k rounded up to
+//     256 bits: no MMA multiplies words that are zero-filled because a stage
+//     is wider.
+//   * C: each group's half tile (4 KB) is copied into shared memory
+//     (cp.async, 16 bytes a thread) during the previous tile's epilogue and
+//     the tile's own MMAs; the parity words are XORed into it there and it
+//     goes back with 16-byte stores, a row a pair of threads.  One block
+//     owns a tile, so no atomics.
+// The inner product is mma.sync m16n8k256 .b1 .and.popc on the packed
+// words (gf2_tile.cuh): 10,400 Tbit-op/s measured for the instruction, which
+// is as far as one panel of contraction can use; wgmma b1 was not tried.
+// One launch contracts at most KW_MAX words; the wrapper splits a deeper
+// contraction (XOR is associative).
 #include "gf2_tile.cuh"
 
 namespace gf2 {
+namespace schur {
 
-constexpr int BNW = BN / 32;  // words of C per tile row
+constexpr int TM = 256;          // rows of a tile: two groups of 128
+constexpr int GM = 128;          // rows of a group
+constexpr int TW = 8;            // words of a tile row
+constexpr int TN = TW * 32;      // columns of a tile
+constexpr int KW_MAX = 32;       // contraction words of one launch (4 k-steps)
+constexpr int RING = 4;          // stages of Up^T
+constexpr int GT = 256;          // threads of a group: 8 warps, 4 (rows) x 2
+constexpr int NT = 2 * GT;       // threads of a block
+constexpr int TR_ROWS = 9;       // padded row of the pre-pass's staging
 
-struct SchurArgs {
-  const uint32_t* lp; long ldl; int m; int kw; bool vec_l;
-  const uint32_t* upt; long ldbt; int nw;
-  uint32_t* c; long ldc;
+// Bounds: by value, or read on the card where a pointer is given.
+struct Bounds {
+  const int* r0p; const int* c0wp; int r0, c0w;
 };
 
-__device__ __forceinline__ void schur_tile(const SchurArgs& s, int m0, int n0,
-                                           uint32_t* smem) {
-  int acc[2][8][4] = {};
-  tile_mainloop(acc, s.lp, s.ldl, s.m, s.vec_l, s.upt, s.ldbt, s.nw * 32, m0,
-                n0, 0, s.kw, smem);
-  for_each_parity_word(acc, m0, n0, [&](int row, int word, uint32_t bits) {
-    if (row < s.m && word < s.nw && bits) s.c[(long)row * s.ldc + word] ^= bits;
-  });
+__device__ __forceinline__ int read_r0(const Bounds& b) {
+  return max(b.r0p ? *b.r0p : b.r0, 0);
+}
+__device__ __forceinline__ int read_c0w(const Bounds& b) {
+  return max(b.c0wp ? *b.c0wp : b.c0w, 0);
+}
+// first column tile of the active rectangle
+__device__ __forceinline__ int first_col_tile(const Bounds& b, int skip) {
+  return max(read_c0w(b) / TW, skip);
 }
 
-__global__ void __launch_bounds__(THREADS, 2)
-schur_kernel(const int* __restrict__ bounds, SchurArgs s, int tile0) {
-  extern __shared__ __align__(16) uint32_t smem[];
-  const int m0 = blockIdx.y * BM;
-  const int n0 = (blockIdx.x + tile0) * BN;
-  const int r0 = bounds[0], c0w = bounds[1];
-  if (m0 + BM <= r0 || n0 / 32 + BNW <= c0w) return;
-  schur_tile(s, m0, n0, smem);
+// Row n of a staged Up^T tile keeps its k-steps (8 words each) in the order
+// ks ^ swz(n): the 16 threads of a half-warp, rows g = 0..3 and word pairs
+// tig = 0..3, then fall on 16 distinct bank pairs (with KS = 1 or 3 the row
+// stride alone spreads them).
+template <int KS>
+__host__ __device__ __forceinline__ int swz(int n) {
+  return KS == 4 ? (n & 3) : KS == 2 ? ((n >> 1) & 1) : 0;
 }
 
-__global__ void __launch_bounds__(THREADS, 2)
-schur_dyn_kernel(const int* __restrict__ bounds, SchurArgs s, int tiles_i,
-                 int tiles_j) {
-  extern __shared__ __align__(16) uint32_t smem[];
-  const int i0 = max(bounds[0], 0) / BM;    // tiles wholly above r0
-  const int j0 = max(bounds[1], 0) / BNW;   // tiles wholly left of c0w
-  const int n_i = tiles_i - i0, n_j = tiles_j - j0;
-  const long total = (n_i > 0 && n_j > 0) ? (long)n_i * n_j : 0;
-  for (long t = blockIdx.x; t < total; t += gridDim.x) {
-    const int jr = (int)(t / n_i), ir = (int)(t - (long)jr * n_i);
-    schur_tile(s, (i0 + ir) * BM, (j0 + jr) * BN, smem);
-    __syncthreads();  // the next tile's first copy reuses this tile's stage
+// The order of a tile's 256 columns among the MMA's: bit b of word w of
+// the tile is row n = h*128 + wn*64 + nt*8 + 2*tig + j of the staged Up^T,
+// with wn = w>>2, tig = w&3, j = b>>4, h = (b>>3)&1, nt = b&7.  Then the
+// thread tig of a quad in the warps of column half wn holds, over the two
+// 128-column halves h and the eight n8 tiles nt, all 32 counts of word
+// wn*4 + tig of its two fragment rows (j: the fragment's two columns), and
+// makes each of its words without a shuffle (parity_bits).
+__host__ __device__ __forceinline__ int mma_row(int col) {
+  const int w = col >> 5, b = col & 31;
+  return ((b >> 3) & 1) * 128 + (w >> 2) * 64 + (b & 7) * 8 + (w & 3) * 2 +
+         (b >> 4);
+}
+
+// ---- pre-pass: UT[tile][n][KS*8 words] from Up[k, nw], right of the edge --
+
+// grid (ceil(words from the host's lower edge / 32), KS), 256 threads.  As
+// gf2_tile.cuh's transpose_b_kernel: warp w takes contraction word
+// blockIdx.y*8 + w, lane l a word column of Up, a 32 x 32 bit block is
+// transposed in registers; rows of Up at or beyond k and columns at or
+// beyond nw read as zero.  The block's words start at the edge read on the
+// card, so nothing left of it is read; blocks past the last tile return.
+template <int KS>
+__global__ void __launch_bounds__(256)
+schur_transpose_kernel(const uint32_t* __restrict__ up, long ldu, int k,
+                       int nw, int tiles_j, Bounds bd, int skip,
+                       uint32_t* __restrict__ ut) {
+  __shared__ uint32_t s[1024 * TR_ROWS];
+  constexpr int RW = KS * 8;
+  const int wb = first_col_tile(bd, skip) * TW + blockIdx.x * 32;
+  if (wb >= tiles_j * TW) return;
+  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
+  const int kwi = blockIdx.y * 8 + w;
+  const int nwi = wb + l;
+  uint32_t x[32];
+#pragma unroll
+  for (int r = 0; r < 32; ++r) {
+    const long row = (long)kwi * 32 + r;
+    x[r] = (row < k && nwi < nw) ? up[row * ldu + nwi] : 0u;
+  }
+  transpose32(x);
+#pragma unroll
+  for (int j = 0; j < 32; ++j) s[(j * 32 + l) * TR_ROWS + w] = x[j];
+  __syncthreads();
+  // 8 threads write one row's 8 words: one 32-byte sector
+  for (int i = 0; i < 32; ++i) {
+    const int idx = i * 256 + threadIdx.x;
+    const int row = idx >> 3, c = idx & 7;       // row = l*32 + j
+    const long col = (long)wb * 32 + row;
+    if (col < (long)tiles_j * TN) {
+      const int t = (int)(col / TN), n = mma_row((int)(col % TN));
+      const int word = ((int)(blockIdx.y ^ swz<KS>(n)) << 3) + c;
+      ut[((long)t * TN + n) * RW + word] =
+          s[((row & 31) * 32 + (row >> 5)) * TR_ROWS + c];
+    }
   }
 }
 
-inline SchurArgs schur_args(void* c, long ldc, const void* lp, long ldl,
-                            void* upt, long ldbt, int m, int kw, int nw) {
-  return SchurArgs{static_cast<const uint32_t*>(lp), ldl, m, kw,
-                   aligned16(lp, ldl), static_cast<const uint32_t*>(upt), ldbt,
-                   nw, static_cast<uint32_t*>(c), ldc};
+// ---- mbarrier and bulk copy ----
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
 }
 
+// ---- the kernel ----
+
+struct Args {
+  const uint32_t* lp; long ldl; int kwl;   // Lp and its words in this launch
+  const uint32_t* ut;                      // pre-pass output
+  uint32_t* c; long ldc; int m, nw;
+  int tiles_i, tiles_j, skip;
+  bool vec_c;                              // 16-byte copies of C allowed
+  Bounds bd;
+};
+
+template <int KS>
+constexpr int smem_bytes() {
+  return RING * TN * KS * 8 * 4 + 2 * TM * TW * 4 + 2 * RING * 8;
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_addr(bar)) : "memory");
+}
+// the barrier of one group of 8 warps (id 0 is __syncthreads')
+__device__ __forceinline__ void group_sync(int grp) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(1 + grp), "r"(GT) : "memory");
+}
+
+// The parity bits of half H of this thread's four words (rows g and g+8 of
+// m16 tiles 0 and 1, word wn*4 + tig; see mma_row): bit j*16 + H*8 + nt is
+// the count of n8 tile nt, fragment column j.  The two counts of a fragment
+// row are summed 16 bits apart (a count is below 2^16), so one mask and one
+// shift place two bits.
+template <int H>
+__device__ __forceinline__ void parity_bits(const int (&acc)[2][8][4],
+                                            uint32_t (&word)[2][2]) {
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int(&q)[4] = acc[mt][nt];
+      const uint32_t lo = (uint32_t)q[0] + ((uint32_t)q[1] << 16);
+      const uint32_t hi = (uint32_t)q[2] + ((uint32_t)q[3] << 16);
+      word[mt][0] |= (lo & 0x10001u) << (H * 8 + nt);
+      word[mt][1] |= (hi & 0x10001u) << (H * 8 + nt);
+    }
+  }
+}
+
+// Tile coordinates of a run, advanced one tile at a time (row-major over
+// the rectangle) so that no division is made per tile.
+struct Walk {
+  int ti, tj;
+  __device__ __forceinline__ Walk(long s, int i0, int j0, int n_j)
+      : ti(i0 + (int)(s / n_j)), tj(j0 + (int)(s % n_j)) {}
+  __device__ __forceinline__ void next(int j0, int tiles_j) {
+    if (++tj == tiles_j) { tj = j0; ++ti; }
+  }
+};
+
+// A block takes a run of 256-row tiles and runs it as two groups of 8 warps,
+// one on each 128-row half, each with its own barrier, C buffers and
+// copies: the groups drift apart like two blocks would (one multiplies while
+// the other is in its epilogue) but share every staged Up^T tile, which
+// halves what the ring reads from L2 against one 128-row band a tile.  A
+// stage is refilled once both groups have arrived on its `empty` barrier.
+template <int KS>
+__global__ void __launch_bounds__(NT, 1) schur_kernel(Args a) {
+  extern __shared__ __align__(128) uint32_t smem[];
+  constexpr int RW = KS * 8;
+  constexpr int STAGE = TN * RW;                 // words of one Up^T tile
+  uint32_t* stage = smem;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + RING * STAGE + 2 * TM * TW);
+  uint64_t* empty = full + RING;
+
+  // the active rectangle and this block's run of it
+  const int i0 = read_r0(a.bd) / TM;
+  const int j0 = first_col_tile(a.bd, a.skip);
+  const int n_i = a.tiles_i - i0, n_j = a.tiles_j - j0;
+  const long total = (n_i > 0 && n_j > 0) ? (long)n_i * n_j : 0;
+  const long s0 = total * blockIdx.x / gridDim.x;
+  const int count = (int)(total * (blockIdx.x + 1) / gridDim.x - s0);
+  if (count <= 0) return;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int grp = warp >> 3, gt = tid & (GT - 1);
+  const int wm = (warp & 7) >> 1, wn = warp & 1, g = lane >> 2, tig = lane & 3;
+  uint32_t* cbuf = smem + RING * STAGE + grp * 2 * GM * TW;   // this group's
+  Walk cur(s0, i0, j0, n_j), c_next = cur, b_next = cur;
+
+  if (tid == 0) {
+    for (int s = 0; s < RING; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  auto load_b = [&](int i) {                     // thread 0, i in order
+    if (i < count) {
+      uint64_t* bar = &full[i % RING];
+      mbar_expect_tx(bar, STAGE * 4);
+      bulk_load(stage + (i % RING) * STAGE,
+                a.ut + (long)b_next.tj * STAGE, STAGE * 4, bar);
+      b_next.next(j0, a.tiles_j);
+    }
+  };
+  // the group's half of C tile i into its buffer i & 1: thread gt copies
+  // words 4*(gt&1).. of row gt>>1; what lies past the edge of C is neither
+  // read nor written
+  const int cr = gt >> 1, cw = 4 * (gt & 1);
+  auto load_c = [&](int i) {                     // i in order
+    if (i < count) {
+      const int row = c_next.ti * TM + grp * GM + cr, w = c_next.tj * TW + cw;
+      c_next.next(j0, a.tiles_j);
+      const int valid = row < a.m ? min(max(a.nw - w, 0), 4) : 0;
+      const uint32_t* p = valid ? a.c + (long)row * a.ldc + w : a.c;
+      const uint32_t d = smem_addr(cbuf + (i & 1) * GM * TW + cr * TW + cw);
+      if (a.vec_c) {
+        cp_async16(d, p, valid * 4);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          cp_async4(d + 4 * j, j < valid ? p + j : a.c, j < valid ? 4 : 0);
+      }
+    }
+    cp_async_commit();
+  };
+
+  if (tid == 0)
+    for (int i = 0; i < RING; ++i) load_b(i);
+  load_c(0);
+
+  uint32_t af[2][KS][4];                         // this warp's rows of the band
+  int band = -1;
+  for (int i = 0; i < count; ++i, cur.next(j0, a.tiles_j)) {
+    const int ti = cur.ti, tj = cur.tj;
+    const int row0 = ti * TM + grp * GM;          // the group's first row
+    if (ti != band) {
+      band = ti;
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const int row = row0 + wm * 32 + mt * 16 + g;
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+          const int w = ks * 8 + 2 * tig;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {          // lo.x, hi.x, lo.y, hi.y
+            const int r = row + 8 * (q & 1), ww = w + (q >> 1);
+            af[mt][ks][q] = (r < a.m && ww < a.kwl)
+                                ? __ldg(a.lp + (long)r * a.ldl + ww) : 0u;
+          }
+        }
+      }
+    }
+    mbar_wait(&full[i % RING], (i / RING) & 1);
+    const uint32_t* bs = stage + (i % RING) * STAGE;
+    uint32_t word[2][2] = {};                    // [mt][row g, row g+8]
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {                // 128-column halves
+      int acc[2][8][4] = {};
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          const int n = h * 128 + wn * 64 + nt * 8 + g;
+          const uint2 fb = *reinterpret_cast<const uint2*>(
+              bs + n * RW + ((ks ^ swz<KS>(n)) << 3) + 2 * tig);
+          mma_b1(acc[0][nt], af[0][ks], fb.x, fb.y);
+          mma_b1(acc[1][nt], af[1][ks], fb.x, fb.y);
+        }
+      }
+      if (h == 0) parity_bits<0>(acc, word);
+      else parity_bits<1>(acc, word);
+    }
+    cp_async_wait<0>();    // this tile's C (the only copy in flight) ...
+    group_sync(grp);       // ... has landed for the group, which is done
+    if (gt == 0) {         // with stage i % RING
+      mbar_arrive(&empty[i % RING]);
+      if (tid == 0 && i + RING < count) {
+        mbar_wait(&empty[i % RING], (i / RING) & 1);
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        load_b(i + RING);
+      }
+    }
+    load_c(i + 1);         // into the buffer the previous tile stored from
+    uint32_t* cs = cbuf + (i & 1) * GM * TW;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        cs[(wm * 32 + mt * 16 + g + 8 * r) * TW + wn * 4 + tig] ^= word[mt][r];
+    group_sync(grp);
+    const int row = row0 + cr, w = tj * TW + cw;
+    if (row < a.m) {
+      const uint32_t* src = cs + cr * TW + cw;
+      uint32_t* dst = a.c + (long)row * a.ldc + w;
+      const int valid = min(max(a.nw - w, 0), 4);
+      if (a.vec_c && valid == 4) {
+        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+      } else {
+        for (int j = 0; j < valid; ++j) dst[j] = src[j];
+      }
+    }
+  }
+}
+
+// Blocks the card holds at once (an SM's worth times the SMs), once for
+// each KS, with the kernel's shared memory allowed on the way: -1 if it
+// cannot be had.  Internal linkage, so that two builds of this file loaded
+// in one process (two trees compared) keep their own.
+static int g_capacity[5];
+
+template <int KS>
+int capacity() {
+  int& blocks = g_capacity[KS];
+  if (!blocks) {
+    int dev = 0, sms = 0, per_sm = 0;
+    const bool ok =
+        cudaGetDevice(&dev) == cudaSuccess &&
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) ==
+            cudaSuccess &&
+        cudaFuncSetAttribute(schur_kernel<KS>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_bytes<KS>()) == cudaSuccess &&
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, schur_kernel<KS>, NT, smem_bytes<KS>()) == cudaSuccess;
+    blocks = ok && per_sm * sms > 0 ? per_sm * sms : -1;
+  }
+  return blocks;
+}
+
+template <int KS>
+cudaError_t launch(const Args& a, const uint32_t* up, long ldu, int k,
+                   uint32_t* ut, int j0_host, int blocks, cudaStream_t st) {
+  if (capacity<KS>() < 1) return cudaErrorInvalidConfiguration;
+  const int words = (a.tiles_j - j0_host) * TW;
+  schur_transpose_kernel<KS><<<dim3((words + 31) / 32, KS), 256, 0, st>>>(
+      up, ldu, k, a.nw, a.tiles_j, a.bd, a.skip, ut);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  schur_kernel<KS><<<blocks, NT, smem_bytes<KS>(), st>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace schur
 }  // namespace gf2
 
-// c: [m, nw] words, updated in place; lp: [m, kw]; up: [k, nw], k <= 32*kw;
-// upt: scratch [32*nw, ldbt] for Up^T, ldbt >= kw and a multiple of 4, 16-byte
-// aligned; bounds: two ints on the device, (r0, c0w); strides in words.
-// col_tile_skip: leading 128-bit column tiles that are not launched,
-// 0 <= col_tile_skip < ceil(nw/4).  Returns cudaGetLastError().
-extern "C" int gf2_schur_update_hopper_launch(
-    void* c, long ldc, const void* lp, long ldl, const void* up, long ldu,
-    void* upt, long ldbt, const void* bounds, int m, int kw, int k, int nw,
-    int col_tile_skip, void* stream) {
-  using namespace gf2;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int tiles_j = (nw + BNW - 1) / BNW;
-  if (col_tile_skip < 0 || col_tile_skip >= tiles_j)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = launch_transpose_b(static_cast<const uint32_t*>(up), ldu, k,
-                                       nw, static_cast<uint32_t*>(upt), ldbt,
-                                       kw, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = allow_smem(schur_kernel);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(tiles_j - col_tile_skip, (m + BM - 1) / BM);
-  schur_kernel<<<grid, THREADS, SMEM_BYTES, st>>>(
-      static_cast<const int*>(bounds),
-      schur_args(c, ldc, lp, ldl, upt, ldbt, m, kw, nw), col_tile_skip);
-  return static_cast<int>(cudaGetLastError());
+// Blocks the persistent grid may hold resident on the current card for a
+// contraction of ks k-steps (1..4); -1 if it cannot be asked.
+extern "C" int gf2_schur_hopper_capacity(int ks) {
+  using namespace gf2::schur;
+  switch (ks) {
+    case 1: return capacity<1>();
+    case 2: return capacity<2>();
+    case 3: return capacity<3>();
+    case 4: return capacity<4>();
+  }
+  return -1;
 }
 
-// As above, for m % 128 == 0 and nw % 4 == 0 (whole tiles), without
-// col_tile_skip: the kernel finds the active tiles itself.
-extern "C" int gf2_schur_update_dyn_hopper_launch(
-    void* c, long ldc, const void* lp, long ldl, const void* up, long ldu,
-    void* upt, long ldbt, const void* bounds, int m, int kw, int k, int nw,
+// c: [m, nw] words, updated in place; lp: [m, >= kwl] (kwl words used);
+// up: [k, nw], k <= 32*kwl, ceil(k/32) <= 8*ks, ks in 1..4; ut: scratch of
+// ceil(nw/8) * 256 * 8*ks words, 16-byte aligned.  Bounds: r0p / c0wp point
+// to an int on the card, or are null and r0 / c0w are taken.  skip: leading
+// 8-word column tiles never touched, 0 <= skip < ceil(nw/8).  j0_host: a
+// lower bound of the first active column tile known on the host (>= skip);
+// blocks: the grid, >= 1.  Strides in words.  Returns cudaGetLastError().
+extern "C" int gf2_schur_hopper_launch(
+    void* c, long ldc, const void* lp, long ldl, int kwl, const void* up,
+    long ldu, int k, void* ut, const void* r0p, const void* c0wp, int r0,
+    int c0w, int m, int nw, int ks, int skip, int j0_host, int blocks,
     void* stream) {
   using namespace gf2;
+  using namespace gf2::schur;
+  const int tiles_j = (nw + TW - 1) / TW;
+  if (skip < 0 || skip >= tiles_j || j0_host < skip || j0_host >= tiles_j ||
+      blocks < 1 || kwl > KW_MAX || (k + 31) / 32 > 8 * ks)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a{static_cast<const uint32_t*>(lp), ldl, kwl,
+         static_cast<const uint32_t*>(ut), static_cast<uint32_t*>(c), ldc, m,
+         nw, (m + TM - 1) / TM, tiles_j, skip, aligned16(c, ldc),
+         Bounds{static_cast<const int*>(r0p), static_cast<const int*>(c0wp),
+                r0, c0w}};
+  const auto* u = static_cast<const uint32_t*>(up);
+  auto* t = static_cast<uint32_t*>(ut);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (m % BM || nw % BNW) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = launch_transpose_b(static_cast<const uint32_t*>(up), ldu, k,
-                                       nw, static_cast<uint32_t*>(upt), ldbt,
-                                       kw, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = allow_smem(schur_dyn_kernel);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int dev = 0, sms = 0;
-  err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int tiles_i = m / BM, tiles_j = nw / BNW;
-  const long tiles = (long)tiles_i * tiles_j;
-  const int blocks = (int)(tiles < 2L * sms ? tiles : 2L * sms);  // 2 fit an SM
-  schur_dyn_kernel<<<blocks, THREADS, SMEM_BYTES, st>>>(
-      static_cast<const int*>(bounds),
-      schur_args(c, ldc, lp, ldl, upt, ldbt, m, kw, nw), tiles_i, tiles_j);
-  return static_cast<int>(cudaGetLastError());
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (ks) {
+    case 1: err = launch<1>(a, u, ldu, k, t, j0_host, blocks, st); break;
+    case 2: err = launch<2>(a, u, ldu, k, t, j0_host, blocks, st); break;
+    case 3: err = launch<3>(a, u, ldu, k, t, j0_host, blocks, st); break;
+    case 4: err = launch<4>(a, u, ldu, k, t, j0_host, blocks, st); break;
+  }
+  return static_cast<int>(err);
 }

@@ -4,17 +4,28 @@ Replaces the TPU kernels ``gf2_schur_update`` and ``gf2_schur_update_dyn``
 (m4ri_tpu/ops/pallas_schur.py).  Same contract: c ``[m, nw]`` words, lp
 ``[m, kw]``, up ``[k, nw]`` with ``k <= 32*kw``; rows of lp above ``r0`` are
 zero and words of up left of ``c0w`` are zero, so every tile of c that lies
-wholly above r0 or wholly left of c0w keeps its words, and the kernels never
-load such a tile.  The bounds go to the card as two ints in device memory;
-they may be given as Python ints or as tensors that are already there.
+wholly above r0 or wholly left of c0w keeps its words, and the kernel never
+reads such a tile.  A tile is ``TILE_ROWS`` rows by ``TILE_WORDS`` words.
 
-What bounds it on an H100: bytes.  One panel of contraction is a step or two
-of the 1-bit MMA, then c is read and written, and over a sweep three quarters
-of c need neither.  ``gf2_schur_update_hopper`` launches a grid over the
-column tiles right of ``col_tile_skip`` and lets inactive blocks return at
-once; ``gf2_schur_update_dyn_hopper`` is a persistent grid that derives the
-active rectangle from the bounds on the device (csrc/gf2_schur_hopper.cu).
-A tile is 128 rows by 4 words.
+Both entry points launch one kernel (csrc/gf2_schur_hopper.cu): a
+persistent grid over the active rectangle
+``[r0 // TILE_ROWS, tiles_i) x [max(c0w // TILE_WORDS, skip), tiles_j)``,
+each block one contiguous run of it in row-major order
+(``schur_schedule_plain`` is that partition in numpy), the block's band of
+lp kept in registers, Up^T streamed through a ring of shared-memory stages
+that the block's two 128-row groups share, each C tile read ahead and
+written back whole.  The bounds go to the kernel without a copy: an int by
+value, a tensor on the card by pointer (read there), a tensor on the host by
+value.  ``gf2_schur_update_hopper`` sizes its
+grid from what it knows on the host (with int bounds, no block is launched
+for a finished tile, and nothing at all when every tile is finished);
+``gf2_schur_update_dyn_hopper`` launches the same grid whatever the bounds
+and lets the kernel find the rectangle, as the JAX package's dynamic
+pipeline does.
+
+What bounds it on an H100: bytes at nb=512, operations at nb=1024 (see the
+source).  A contraction deeper than ``KW_MAX`` words is split into launches
+of at most that depth (XOR is associative).
 
 Both update ``c`` in place and return it.  Strides are passed through: c,
 lp and up may be views with any row stride, the words of a row adjacent.
@@ -25,15 +36,20 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
-from .hopper_mul import bt_scratch, check_operands, gf2_mul_plain
+from ..utils.config import WORD_BITS
+from .hopper_mul import check_operands, gf2_mul_plain
 
 __all__ = ["gf2_schur_update_hopper", "gf2_schur_update_dyn_hopper",
-           "gf2_schur_update_plain", "TILE_ROWS", "TILE_WORDS"]
+           "gf2_schur_update_plain", "schur_schedule_plain", "grid_blocks",
+           "TILE_ROWS", "TILE_WORDS", "KW_MAX"]
 
-TILE_ROWS = 128   # BM of csrc/gf2_tile.cuh
-TILE_WORDS = 4    # BN / 32
+TILE_ROWS = 256   # TM of csrc/gf2_schur_hopper.cu
+TILE_WORDS = 8    # TW: a tile row is one 32-byte sector of c
+KW_MAX = 32       # contraction words of one launch
+_TILE_COLS = TILE_WORDS * WORD_BITS
 
 
 def gf2_schur_update_plain(c: torch.Tensor, lp: torch.Tensor,
@@ -45,54 +61,137 @@ def gf2_schur_update_plain(c: torch.Tensor, lp: torch.Tensor,
     return c
 
 
-def _bounds(r0, c0w, device) -> torch.Tensor:
-    """int32[2] on the device from ints or from tensors already there."""
-    if isinstance(r0, torch.Tensor) or isinstance(c0w, torch.Tensor):
-        parts = [torch.as_tensor(x, dtype=torch.int32, device=device).reshape(1)
-                 for x in (r0, c0w)]
-        return torch.cat(parts)
-    return torch.tensor([r0, c0w], dtype=torch.int32, device=device)
+def _tiles(m: int, nw: int) -> tuple[int, int]:
+    return -(-m // TILE_ROWS), -(-nw // TILE_WORDS)
+
+
+def _rect(m: int, nw: int, r0, c0w, skip: int) -> tuple[int, int, int, int]:
+    """(i0, j0, n_i, n_j) of the active rectangle, as the kernel reckons it;
+    a bound given as None is taken as 0 (not known on the host)."""
+    tiles_i, tiles_j = _tiles(m, nw)
+    i0 = max(r0 or 0, 0) // TILE_ROWS
+    j0 = max(max(c0w or 0, 0) // TILE_WORDS, skip)
+    return i0, j0, max(tiles_i - i0, 0), max(tiles_j - j0, 0)
+
+
+def grid_blocks(m: int, nw: int, r0, c0w, skip: int, dyn: bool,
+                capacity: int) -> int:
+    """The grid a launch gets: at most ``capacity`` (the blocks the card
+    holds at once), and no more than the tiles that may be active as far as
+    the host knows (``r0``/``c0w`` None: read on the card).  The persistent
+    entry counts every tile whatever the bounds.  0: nothing to launch."""
+    if dyn:
+        r0 = c0w = None
+        skip = 0
+    _, _, n_i, n_j = _rect(m, nw, r0, c0w, skip)
+    return min(n_i * n_j, capacity)
+
+
+def schur_schedule_plain(m: int, nw: int, r0: int, c0w: int, skip: int,
+                         blocks: int) -> list:
+    """The kernel's schedule in numpy: for each of ``blocks`` blocks the
+    (row tile, column tile) pairs it takes, in order.  Block b takes tiles
+    [T*b // blocks, T*(b+1) // blocks) of the T active ones, counted
+    row-major over the rectangle."""
+    i0, j0, n_i, n_j = _rect(m, nw, r0, c0w, skip)
+    total = n_i * n_j
+    out = []
+    for b in range(blocks):
+        s = np.arange(total * b // blocks, total * (b + 1) // blocks)
+        out.append(np.stack([i0 + s // max(n_j, 1), j0 + s % max(n_j, 1)],
+                            axis=1))
+    return out
+
+
+def _slices(lp: torch.Tensor, up: torch.Tensor):
+    """(lp, up, k-steps) of each launch: the contraction KW_MAX words at a
+    time, views of the operands; words of lp past up's rows are left out."""
+    kwords = -(-up.shape[0] // WORD_BITS)
+    for w0 in range(0, kwords, KW_MAX):
+        ups = up[w0 * WORD_BITS:(w0 + KW_MAX) * WORD_BITS]
+        yield lp[:, w0:w0 + KW_MAX], ups, -(-ups.shape[0] // 256)
+
+
+def _bound(x, name: str, device):
+    """(tensor on the card or None, value or None): a tensor on the card is
+    read there by the kernel; an int or a tensor on the host goes by value."""
+    if isinstance(x, torch.Tensor):
+        if x.numel() != 1:
+            raise ValueError(f"{name}: want one value, got shape "
+                             f"{tuple(x.shape)}")
+        if not x.is_cuda:
+            return None, int(x)
+        if x.device != device:
+            raise ValueError(f"{name} lies on {x.device}, c on {device}")
+        return x.reshape(()).to(torch.int32), None
+    return None, int(x)
 
 
 _VOID, _LONG, _INT = ctypes.c_void_p, ctypes.c_long, ctypes.c_int
-_COMMON = [_VOID, _LONG, _VOID, _LONG, _VOID, _LONG, _VOID, _LONG, _VOID,
-           _INT, _INT, _INT, _INT]
 
 
 @functools.lru_cache(maxsize=None)
 def _fns():
     from ._build import load
     lib = load("gf2_schur_hopper")
-    static, dyn = (lib.gf2_schur_update_hopper_launch,
-                   lib.gf2_schur_update_dyn_hopper_launch)
-    static.argtypes = _COMMON + [_INT, _VOID]
-    dyn.argtypes = _COMMON + [_VOID]
-    static.restype = dyn.restype = _INT
-    return static, dyn
+    launch, capacity = (lib.gf2_schur_hopper_launch,
+                        lib.gf2_schur_hopper_capacity)
+    launch.argtypes = [_VOID, _LONG, _VOID, _LONG, _INT, _VOID, _LONG, _INT,
+                       _VOID, _VOID, _VOID] + [_INT] * 8 + [_VOID]
+    capacity.argtypes = [_INT]
+    launch.restype = capacity.restype = _INT
+    return launch, capacity
 
 
-def _launch(which: int, c, lp, up, r0, c0w, extra: tuple) -> int:
-    m, kw = lp.shape
-    k, nw = up.shape
-    upt = bt_scratch(kw, nw, c.device)
-    bounds = _bounds(r0, c0w, c.device)
-    fn = _fns()[which]
+@functools.lru_cache(maxsize=None)
+def _capacity(ks: int) -> int:
+    got = _fns()[1](ks)
+    if got < 1:
+        raise RuntimeError(f"gf2_schur_hopper: no block of {ks} k-steps "
+                           f"fits the card ({got})")
+    return got
+
+
+def _launch(fn, c, lp, up, r0, c0w, skip: int, dyn: bool) -> None:
+    """One launch for each KW_MAX words of contraction; counted on ``fn``."""
+    m, nw = c.shape
+    r0_t, r0_v = _bound(r0, "r0", c.device)
+    c0w_t, c0w_v = _bound(c0w, "c0w", c.device)
+    _, j0, n_i, n_j = _rect(m, nw, r0_v, c0w_v, skip)
+    if dyn:
+        j0 = 0
+    elif n_i * n_j == 0:                   # every tile finished: no launch
+        return
+    launch = _fns()[0]
+    tiles_j = _tiles(m, nw)[1]
     with torch.cuda.device(c.device):
         stream = torch.cuda.current_stream().cuda_stream
-        return fn(c.data_ptr(), c.stride(0), lp.data_ptr(), lp.stride(0),
-                  up.data_ptr(), up.stride(0), upt.data_ptr(), upt.stride(0),
-                  bounds.data_ptr(), m, kw, k, nw, *extra, stream)
+        for lps, ups, ks in _slices(lp, up):
+            blocks = grid_blocks(m, nw, r0_v, c0w_v, skip, dyn, _capacity(ks))
+            ut = torch.empty(tiles_j * _TILE_COLS * 8 * ks, dtype=torch.int32,
+                             device=c.device)
+            err = launch(
+                c.data_ptr(), c.stride(0), lps.data_ptr(), lps.stride(0),
+                lps.shape[1], ups.data_ptr(), ups.stride(0), ups.shape[0],
+                ut.data_ptr(), None if r0_t is None else r0_t.data_ptr(),
+                None if c0w_t is None else c0w_t.data_ptr(), r0_v or 0,
+                c0w_v or 0, m, nw, ks, skip, j0, blocks, stream)
+            fn.launches += 1
+            if err:
+                raise RuntimeError(f"{fn.__name__}: CUDA error {err} at "
+                                   f"launch (c {m}x{nw} words, k={up.shape[0]})")
 
 
 def gf2_schur_update_hopper(c: torch.Tensor, lp: torch.Tensor,
                             up: torch.Tensor, r0, c0w,
                             col_tile_skip: int = 0) -> torch.Tensor:
     """c ^= lp*up in place under the contract above.  ``col_tile_skip``
-    leading column tiles (of ``TILE_WORDS`` words) are not launched at all:
-    the caller vouches that ``col_tile_skip * TILE_WORDS <= c0w``.  CPU
-    tensors take the plain version; CUDA tensors launch the kernel or raise."""
+    leading column tiles (of ``TILE_WORDS`` words) are never touched: the
+    caller vouches that ``col_tile_skip * TILE_WORDS <= c0w``.  ``r0``,
+    ``c0w``: ints, or one-value tensors.  CPU tensors take the plain version;
+    CUDA tensors launch the kernel or raise."""
     check_operands(lp, up, c)   # c: the shape of lp*up, same type and device
-    tiles_j = -(-c.shape[1] // TILE_WORDS)
+    tiles_j = _tiles(*c.shape)[1]
     if not 0 <= col_tile_skip < max(tiles_j, 1):
         raise ValueError(f"col_tile_skip={col_tile_skip} of {tiles_j} tiles")
     if isinstance(c0w, int) and col_tile_skip * TILE_WORDS > c0w:
@@ -102,19 +201,17 @@ def gf2_schur_update_hopper(c: torch.Tensor, lp: torch.Tensor,
         return gf2_schur_update_plain(c, lp, up)
     if c.numel() == 0 or up.shape[0] == 0:
         return c
-    err = _launch(0, c, lp, up, r0, c0w, (col_tile_skip,))
-    gf2_schur_update_hopper.launches += 1
-    if err:
-        raise RuntimeError(f"gf2_schur_update_hopper: CUDA error {err} at launch")
+    _launch(gf2_schur_update_hopper, c, lp, up, r0, c0w, col_tile_skip, False)
     return c
 
 
 def gf2_schur_update_dyn_hopper(c: torch.Tensor, lp: torch.Tensor,
                                 up: torch.Tensor, r0, c0w) -> torch.Tensor:
     """c ^= lp*up in place; the kernel derives the active tiles from
-    (r0, c0w) on the device, in both dimensions.  Needs whole tiles:
-    ``m % TILE_ROWS == 0`` and ``nw % TILE_WORDS == 0``.  CPU tensors take
-    the plain version; CUDA tensors launch the kernel or raise."""
+    (r0, c0w) on the device, in both dimensions, and the launch is the same
+    whatever the bounds.  Needs whole tiles: ``m % TILE_ROWS == 0`` and
+    ``nw % TILE_WORDS == 0``.  CPU tensors take the plain version; CUDA
+    tensors launch the kernel or raise."""
     check_operands(lp, up, c)   # c: the shape of lp*up, same type and device
     m, nw = c.shape
     if m % TILE_ROWS or nw % TILE_WORDS:
@@ -124,11 +221,7 @@ def gf2_schur_update_dyn_hopper(c: torch.Tensor, lp: torch.Tensor,
         return gf2_schur_update_plain(c, lp, up)
     if c.numel() == 0 or up.shape[0] == 0:
         return c
-    err = _launch(1, c, lp, up, r0, c0w, ())
-    gf2_schur_update_dyn_hopper.launches += 1
-    if err:
-        raise RuntimeError(
-            f"gf2_schur_update_dyn_hopper: CUDA error {err} at launch")
+    _launch(gf2_schur_update_dyn_hopper, c, lp, up, r0, c0w, 0, True)
     return c
 
 

@@ -108,21 +108,69 @@ def _schur_operands(card, m, k, n, r0, c0w, seed=20):
     return c, lp, up
 
 
+_SCHUR = {"static": hopper_schur.gf2_schur_update_hopper,
+          "dyn": hopper_schur.gf2_schur_update_dyn_hopper}
+_TW, _TR = hopper_schur.TILE_WORDS, hopper_schur.TILE_ROWS
+
+
+def _schur_call(card, kernel, c, lp, up, r0, c0w, bounds):
+    """One call of an entry point; ``bounds``: "int" or "tensor" (on the
+    card).  The static entry skips the column tiles left of c0w."""
+    if bounds == "tensor":
+        r0, c0w = (torch.tensor(v, dtype=torch.int32, device=card)
+                   for v in (r0, c0w))
+        skip = 0
+    else:
+        skip = min(c0w // _TW, -(-c.shape[1] // _TW) - 1)
+    if kernel == "dyn":
+        return _SCHUR[kernel](c, lp, up, r0, c0w)
+    return _SCHUR[kernel](c, lp, up, r0, c0w, col_tile_skip=skip)
+
+
+@pytest.mark.parametrize("bounds", ["int", "tensor"])
 @pytest.mark.parametrize("kernel", ["static", "dyn"])
 @pytest.mark.parametrize("r0,c0w", [(0, 0), (100, 16), (256, 128), (512, 128),
-                                    (37, 5), (511, 127)])
-def test_schur_equals_plain(card, kernel, r0, c0w):
+                                    (37, 5), (511, 127), (600, 3), (5, 200)])
+def test_schur_equals_plain(card, kernel, bounds, r0, c0w):
     """The bounds of the JAX package's dyn test, on the port's tiles: partial
-    tiles stay active, (512, 128) skips everything."""
+    tiles stay active, (512, 128) skips everything, and so do r0 >= m and
+    c0w >= nw."""
     c, lp, up = _schur_operands(card, 512, 256, 128 * 32, r0, c0w)
     want = hopper_schur.gf2_schur_update_plain(c.clone(), lp, up)
-    if kernel == "dyn":
-        got = hopper_schur.gf2_schur_update_dyn_hopper(c, lp, up, r0, c0w)
-    else:
-        got = hopper_schur.gf2_schur_update_hopper(
-            c, lp, up, r0, c0w, col_tile_skip=min(c0w // 4, 31))
+    before = c.clone()
+    got = _schur_call(card, kernel, c, lp, up, r0, c0w, bounds)
     torch.cuda.synchronize()
     assert got is c and torch.equal(c, want)
+    if r0 >= 512 or c0w >= 128:
+        assert torch.equal(c, before)
+
+
+@pytest.mark.parametrize("bounds", ["int", "tensor"])
+@pytest.mark.parametrize("kernel", ["static", "dyn"])
+@pytest.mark.parametrize("r0,c0w", [(0, 32), (8192, 544), (8200, 547),
+                                    (34000, 1000), (34048, 1024)])
+def test_schur_at_the_wide_panel(card, kernel, bounds, r0, c0w):
+    """The shape the sweep gives the kernel at n=32768: C 34048 x 1024 words,
+    k = 1024 (four k-steps, a contraction of one launch)."""
+    c, lp, up = _schur_operands(card, 34048, 1024, 1024 * 32, r0, c0w)
+    want = hopper_schur.gf2_schur_update_plain(c.clone(), lp, up)
+    _schur_call(card, kernel, c, lp, up, r0, c0w, bounds)
+    torch.cuda.synchronize()
+    assert torch.equal(c, want)
+
+
+@pytest.mark.parametrize("k", [32, 300, 768, 2048, 2100])
+def test_schur_contraction_depths(card, k):
+    """One to three k-steps in a launch, and contractions split into
+    launches of KW_MAX words."""
+    c, lp, up = _schur_operands(card, 700, k, 50 * 32, 130, 9)
+    want = hopper_schur.gf2_schur_update_plain(c.clone(), lp, up)
+    n = hopper_schur.gf2_schur_update_hopper.launches
+    hopper_schur.gf2_schur_update_hopper(c, lp, up, 130, 9, col_tile_skip=1)
+    torch.cuda.synchronize()
+    assert torch.equal(c, want)
+    assert hopper_schur.gf2_schur_update_hopper.launches - n == \
+        -(-k // (32 * hopper_schur.KW_MAX))
 
 
 def test_schur_ragged_and_strided(card):
@@ -135,7 +183,9 @@ def test_schur_ragged_and_strided(card):
     view = parent[50:350, 11:11 + 38]
     view.copy_(c)
     r0 = torch.tensor(70, dtype=torch.int32, device=card)
-    hopper_schur.gf2_schur_update_hopper(view, lp, up, r0, 9, col_tile_skip=2)
+    lpv = _packed(31, 300, 320, card)[:, 3:3 + lp.shape[1]]
+    lpv.copy_(lp)
+    hopper_schur.gf2_schur_update_hopper(view, lpv, up, r0, 9, col_tile_skip=1)
     torch.cuda.synchronize()
     keep[50:350, 11:11 + 38] = want
     assert torch.equal(parent, keep)
@@ -145,16 +195,32 @@ def test_schur_ragged_and_strided(card):
 def test_schur_skips_whole_tiles_only(card, kernel):
     """With the contract broken on purpose (lp and up dense everywhere) the
     tiles wholly above r0 or left of c0w keep their words and every other
-    tile takes the full product: the skip is decided on 128 x 4-word tiles."""
+    tile takes the full product: the skip is decided on whole tiles of
+    TILE_ROWS x TILE_WORDS."""
     c = _packed(40, 512, 64 * 32, card)
     lp, up = _packed(41, 512, 128, card), _packed(42, 128, 64 * 32, card)
     r0, c0w = 300, 21
     want = c.clone()
     full = c ^ gf2_mul_plain(lp, up)
-    want[256:, 20:] = full[256:, 20:]
-    fn = (hopper_schur.gf2_schur_update_dyn_hopper if kernel == "dyn"
-          else hopper_schur.gf2_schur_update_hopper)
-    fn(c, lp, up, r0, c0w)
+    row_a, word_a = r0 // _TR * _TR, c0w // _TW * _TW
+    want[row_a:, word_a:] = full[row_a:, word_a:]
+    _SCHUR[kernel](c, lp, up, r0, c0w)
+    torch.cuda.synchronize()
+    assert torch.equal(c, want)
+
+
+@pytest.mark.parametrize("kernel", ["static", "dyn"])
+def test_schur_with_int_bounds_does_not_synchronise(card, kernel):
+    """Nothing in the wrapper waits for the card: no copy of the bounds, no
+    read-back."""
+    c, lp, up = _schur_operands(card, 1024, 512, 64 * 32, 300, 16)
+    want = hopper_schur.gf2_schur_update_plain(c.clone(), lp, up)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _schur_call(card, kernel, c, lp, up, 300, 16, "int")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert torch.equal(c, want)
 

@@ -23,7 +23,8 @@ from m4ri_tpu_torch.ops.hopper_panel import (panel_loop_grouped_plain,
                                              panel_loop_hopper,
                                              panel_loop_plain)
 from m4ri_tpu_torch.ops.hopper_post import panel_post_hopper, panel_post_plain
-from m4ri_tpu_torch.ops.hopper_schur import (gf2_schur_update_dyn_hopper,
+from m4ri_tpu_torch.ops.hopper_schur import (TILE_ROWS, TILE_WORDS,
+                                             gf2_schur_update_dyn_hopper,
                                              gf2_schur_update_hopper,
                                              gf2_schur_update_plain)
 
@@ -63,14 +64,14 @@ def test_plain_equals_pallas_schur(rng, m, k, n, r0, c0, tm, tnw):
 
 def test_plain_equals_pallas_schur_col_tile_skip(rng):
     """col_tile_skip changes nothing when the skipped tiles lie left of the
-    zero columns of up; it is counted in the port's 4-word tiles."""
+    zero columns of up; it is counted in the port's TILE_WORDS-word tiles."""
     m, k, n = 256, 128, 8192
     c, lp, up = _schur_operands(rng, m, k, n, 64, 128 * 32)
     (Jc, Tc), (Jl, Tl), (Ju, Tu) = both(c), both(lp), both(up)
     want = gf2_schur_update(Jc.data, Jl.data, Ju.data, 64, 128, tm=64,
                             tnw=128, col_tile_skip=1, interpret=True)
     got = gf2_schur_update_hopper(Tc.data, Tl.data, Tu.data, 64, 128,
-                                  col_tile_skip=32)
+                                  col_tile_skip=128 // TILE_WORDS)
     assert_same(want, got)
 
 
@@ -104,17 +105,18 @@ def test_schur_wrappers_take_views_and_tensor_bounds(rng):
 
 
 def test_schur_wrappers_raise_on_what_they_do_not_take():
-    c = torch.zeros((128, 8), dtype=torch.int32)
-    lp = torch.zeros((128, 2), dtype=torch.int32)
-    up = torch.zeros((64, 8), dtype=torch.int32)
+    nw = 2 * TILE_WORDS                                   # two column tiles
+    c = torch.zeros((TILE_ROWS, nw), dtype=torch.int32)
+    lp = torch.zeros((TILE_ROWS, 2), dtype=torch.int32)
+    up = torch.zeros((64, nw), dtype=torch.int32)
     with pytest.raises(ValueError):                       # c of another shape
         gf2_schur_update_hopper(c[:, :7], lp, up, 0, 0)
     with pytest.raises(TypeError):
         gf2_schur_update_hopper(c.to(torch.int64), lp, up, 0, 0)
     with pytest.raises(ValueError):                       # skip past the edge
-        gf2_schur_update_hopper(c, lp, up, 0, 8, col_tile_skip=2)
+        gf2_schur_update_hopper(c, lp, up, 0, nw, col_tile_skip=2)
     with pytest.raises(ValueError):                       # skip past c0w
-        gf2_schur_update_hopper(c, lp, up, 0, 3, col_tile_skip=1)
+        gf2_schur_update_hopper(c, lp, up, 0, TILE_WORDS - 1, col_tile_skip=1)
     with pytest.raises(ValueError):                       # rows off the tile
         gf2_schur_update_dyn_hopper(c[:100], lp[:100], up, 0, 0)
     with pytest.raises(ValueError):                       # words off the tile
@@ -388,9 +390,10 @@ def test_cpu_tensors_launch_nothing(rng):
     before = [f.launches for f in fns]
     A = mt.from_numpy(random_dense(rng, 150, 130), device="cpu")
     mt.block_factor(A, preserve_l=True, nb=32, engine="hopper")
-    c = torch.zeros((128, 4), dtype=torch.int32)
-    gf2_schur_update_dyn_hopper(c, torch.zeros((128, 1), dtype=torch.int32),
-                                torch.zeros((32, 4), dtype=torch.int32), 0, 0)
+    c = torch.zeros((TILE_ROWS, TILE_WORDS), dtype=torch.int32)
+    gf2_schur_update_dyn_hopper(
+        c, torch.zeros((TILE_ROWS, 1), dtype=torch.int32),
+        torch.zeros((32, TILE_WORDS), dtype=torch.int32), 0, 0)
     assert [f.launches for f in fns] == before
 
 

@@ -62,10 +62,10 @@ DEV = torch.device("cuda")
 
 KERNELS = {
     "gf2_mul_hopper": dict(
-        fn=gf2_mul_hopper, source="m4ri_tpu_torch/csrc/gf2_mul_hopper.cu",
-        replaces="m4ri_tpu/ops/pallas_mul.py:170", shape=(8192, 512, 8192)),
+        fn=gf2_mul_hopper, source="m4ri_tpu_torch/csrc/gf2_gemm_hopper.cu",
+        replaces="m4ri_tpu/ops/pallas_mul.py:170", shape=(512, 512, 16384)),
     "gf2_mul_hopper_v2": dict(
-        fn=gf2_mul_hopper_v2, source="m4ri_tpu_torch/csrc/gf2_mul_hopper_v2.cu",
+        fn=gf2_mul_hopper_v2, source="m4ri_tpu_torch/csrc/gf2_gemm_hopper.cu",
         replaces="m4ri_tpu/ops/pallas_mul2.py:153", shape=(4096, 4096, 4096)),
     "gf2_schur_update_hopper": dict(
         fn=gf2_schur_update_hopper,
@@ -83,12 +83,18 @@ KERNELS = {
         replaces="m4ri_tpu/ops/pallas_post.py:99"),
 }
 GEMMS = ("gf2_mul_hopper", "gf2_mul_hopper_v2")
-SOURCES = ["gf2_mul_hopper", "gf2_mul_hopper_v2", "gf2_schur_hopper",
+SOURCES = ["gf2_gemm_hopper", "gf2_schur_hopper",
            "gf2_panel_hopper", "gf2_post_hopper", "probe_mma"]
+# the PLE panel's U rows at n=16384 (nb=512) and n=32768 (nb=1024): most of
+# gf2_mul_hopper's launches
+U_ROW_SHAPES = [(512, 512, 16384), (1024, 1024, 32768)]
 CHECK_SHAPES = [(1, 1, 1), (31, 32, 33), (65, 97, 129), (300, 1100, 4200),
                 (512, 1000, 4096), (300, 2100, 8200), (8192, 512, 8192),
-                (4096, 2048, 4096), (4096, 4096, 4096)]
-TIMED_SHAPES = [(4096, 4096, 4096), (8192, 512, 8192)]
+                (4096, 2048, 4096), (4096, 4096, 4096), (50, 9000, 700),
+                (100, 1, 300), *U_ROW_SHAPES]
+TIMED_SHAPES = {"gf2_mul_hopper": [*U_ROW_SHAPES, (8192, 512, 8192),
+                                   (4096, 4096, 4096)],
+                "gf2_mul_hopper_v2": [(4096, 4096, 4096), (8192, 512, 8192)]}
 
 
 class Failed(Exception):
@@ -181,6 +187,9 @@ def phase_device() -> str:
     logs = _build.build(SOURCES)
     build_s = time.time() - t0
     probe = probe_mma()
+    check(probe["b1_wgmma_m64n256k256"]["layout_check_equal"],
+          "wgmma b1 on known operands differs from numpy: "
+          f"{probe['b1_wgmma_m64n256k256']}")
     usage = {name: [ln.strip() for ln in log.splitlines() if "Used" in ln]
              for name, log in logs.items()}
     emit("device", card=card, torch=torch.__version__, cuda=torch.version.cuda,
@@ -207,8 +216,8 @@ def phase_kernels(rng) -> dict:
             checked.append(f"{m}x{k}x{n}")
         # strided quadrant views in, a quadrant view as out=
         pa, pb = packed(rng, 1024, 4096 + 128), packed(rng, 4096, 2048 + 64)
-        for (a, b) in [(pa[512:, 64:], pb[2048:, 32:]),      # 16-byte loads
-                       (pa[:512, 1:65], pb[:2048, 33:]),     # 4-byte loads
+        for (a, b) in [(pa[512:, 64:], pb[2048:, 32:]),      # A by tensor copy
+                       (pa[:512, 1:65], pb[:2048, 33:]),     # A copied first
                        (pa[3:500, 5:64], pb[7:1880, 2:63])]:  # ragged
             parent = packed(rng, 1024, 32 * (b.shape[1] + 9))
             keep = parent.clone()
@@ -220,16 +229,19 @@ def phase_kernels(rng) -> dict:
             bad = max(bad, int((parent != keep).any()))
         checked.append("strided views, out=view")
         if fn is gf2_mul_hopper_v2:
-            a, b = packed(rng, 2048, 8192), packed(rng, 8192, 4096)
-            c = packed(rng, 2048, 4096)
-            want = c ^ gf2_mul_plain(a, b)
-            fn(a, b, out=c, accumulate=True)
-            torch.cuda.synchronize()
-            bad = max(bad, int((c != want).any()))
-            checked.append("accumulate=True")
+            # the contraction in the block (256 tiles), and split across
+            # blocks (15 tiles, 5 stages of 32 words)
+            for (m, k, n) in [(2048, 8192, 4096), (300, 4200, 1100)]:
+                a, b = packed(rng, m, k), packed(rng, k, n)
+                c = packed(rng, m, n)
+                want = c ^ gf2_mul_plain(a, b)
+                fn(a, b, out=c, accumulate=True)
+                torch.cuda.synchronize()
+                bad = max(bad, int((c != want).any()))
+                checked.append(f"accumulate=True {m}x{k}x{n}")
         check(bad == 0, f"{name} disagrees with its plain version")
         shapes = []
-        for (m, k, n) in TIMED_SHAPES:
+        for (m, k, n) in TIMED_SHAPES[name]:
             a, b = packed(rng, m, k), packed(rng, k, n)
             out = torch.empty((m, (n + 31) // 32), dtype=torch.int32, device=DEV)
             t = time_ms(lambda: fn(a, b, out=out))

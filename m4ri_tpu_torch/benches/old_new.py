@@ -1,5 +1,5 @@
-"""The Schur update and the factorization of two trees, timed in turns on
-one card.
+"""The GF(2) GEMMs, the Schur update and the factorization of two trees,
+timed in turns on one card.
 
     python -m m4ri_tpu_torch.benches.old_new --parent DIR [--quick]
 
@@ -9,6 +9,9 @@ under another name beside this one, both build their kernels, and every
 measurement is made parent, this tree, this tree, parent inside this one
 process, so that the card, its clocks and its power limit are the same for
 both.  Outputs are checked equal before anything is timed.  Timed: both
+GEMM wrappers at the shapes of ``split_launch.py`` (4096³, 8192×512×8192,
+the U rows at n=16384 and n=32768, the 8192³ quadrant views), ``mul`` at
+n=4096 and Strassen's ``mul`` at n=16384; both
 Schur entry points at the first and the middle panel of the sweeps at
 n=16384 (nb=512) and n=32768 (nb=1024), called as the sweep calls them (int
 bounds, finished column tiles skipped in each tree's own tiles), and
@@ -31,6 +34,8 @@ import numpy as np
 import torch
 
 import m4ri_tpu_torch as new_pkg
+from m4ri_tpu_torch.benches.split_launch import SHAPES as GEMM_SHAPES
+from m4ri_tpu_torch.benches.split_launch import operands as gemm_operands
 
 
 def load_parent(root: str):
@@ -125,6 +130,34 @@ def main() -> None:
         capture_output=True, text=True).stdout.strip()
     emit("card", card=card, torch=torch.__version__)
     rng = np.random.default_rng(args.seed)
+
+    # ---- the GEMM wrappers, then the products a user calls
+    for label, (m, k, n) in GEMM_SHAPES:
+        a, b, _ = gemm_operands(label, m, k, n)
+        for mod, name in (("ops.hopper_mul", "gf2_mul_hopper"),
+                          ("ops.hopper_mul2", "gf2_mul_hopper_v2")):
+            old_fn = getattr(sub(old_pkg, mod), name)
+            new_fn = getattr(sub(new_pkg, mod), name)
+            out_o = torch.empty((m, n // 32), dtype=torch.int32, device="cuda")
+            out_n = torch.empty_like(out_o)
+            old_fn(a, b, out=out_o)
+            new_fn(a, b, out=out_n)
+            torch.cuda.synchronize()
+            t = in_turns(lambda: old_fn(a, b, out=out_o),
+                         lambda: new_fn(a, b, out=out_n), event_ms)
+            emit("gemm", wrapper=name, shape=label, mkn=[m, k, n],
+                 equal=torch.equal(out_o, out_n), **t)
+        del a, b, out_o, out_n
+    for n, runs in ((4096, 11), (16384, 3)):
+        A = new_pkg.from_packed(packed(rng, n, n), n)
+        B = new_pkg.from_packed(packed(rng, n, n), n)
+        Ao, Bo = (old_pkg.from_packed(x.data, n) for x in (A, B))
+        same = torch.equal(old_pkg.mul(Ao, Bo).data, new_pkg.mul(A, B).data)
+        t = in_turns(lambda: old_pkg.mul(Ao, Bo), lambda: new_pkg.mul(A, B),
+                     event_ms, runs=runs)
+        emit("mul", n=n, equal=same, **t)
+        del A, B, Ao, Bo
+
     plain = sub(new_pkg, "ops.hopper_schur").gf2_schur_update_plain
 
     # ---- the Schur update: C, k and the first and the middle panel

@@ -30,8 +30,7 @@ STAGES = [("panel_kernel", "panel loop (panel_kernel)"),
           ("post_pack_kernel", "panel post (post_pack_kernel, post_kernel)"),
           ("post_kernel", "panel post (post_pack_kernel, post_kernel)"),
           ("schur_transpose_kernel", SCHUR), ("schur_kernel", SCHUR),
-          ("mul_kernel", "U rows (mul_kernel)"),
-          ("transpose_b_kernel", "B^T pre-pass of U rows and Schur"),
+          ("gf2_gemm_kernel", "U rows (gf2_gemm_kernel, with its B^T pre-pass)"),
           ("gemm", "small float32 products (torch.matmul)"),
           ("Memcpy", "copies"), ("Memset", "memsets")]
 

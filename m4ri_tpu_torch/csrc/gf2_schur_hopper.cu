@@ -44,9 +44,11 @@
 //     owns a tile, so no atomics.
 // The inner product is mma.sync m16n8k256 .b1 .and.popc on the packed
 // words (gf2_tile.cuh): 10,400 Tbit-op/s measured for the instruction, which
-// is as far as one panel of contraction can use; wgmma b1 was not tried.
+// is as far as one panel of contraction can use; wgmma b1, which the GEMM
+// (gf2_gemm_hopper.cu) runs at 15,500, is not used here yet.
 // One launch contracts at most KW_MAX words; the wrapper splits a deeper
 // contraction (XOR is associative).
+#include "gf2_sm90.cuh"
 #include "gf2_tile.cuh"
 
 namespace gf2 {
@@ -103,7 +105,7 @@ __host__ __device__ __forceinline__ int mma_row(int col) {
 // ---- pre-pass: UT[tile][n][KS*8 words] from Up[k, nw], right of the edge --
 
 // grid (ceil(words from the host's lower edge / 32), KS), 256 threads.  As
-// gf2_tile.cuh's transpose_b_kernel: warp w takes contraction word
+// the GEMM's bt_kernel (gf2_gemm_hopper.cu): warp w takes contraction word
 // blockIdx.y*8 + w, lane l a word column of Up, a 32 x 32 bit block is
 // transposed in registers; rows of Up at or beyond k and columns at or
 // beyond nw read as zero.  The block's words start at the edge read on the
@@ -144,37 +146,6 @@ schur_transpose_kernel(const uint32_t* __restrict__ up, long ldu, int k,
   }
 }
 
-// ---- mbarrier and bulk copy ----
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(smem_addr(bar)), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
-  } while (!done);
-}
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n"
-      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
 // ---- the kernel ----
 
 struct Args {
@@ -191,10 +162,6 @@ constexpr int smem_bytes() {
   return RING * TN * KS * 8 * 4 + 2 * TM * TW * 4 + 2 * RING * 8;
 }
 
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(smem_addr(bar)) : "memory");
-}
 // the barrier of one group of 8 warps (id 0 is __syncthreads')
 __device__ __forceinline__ void group_sync(int grp) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(1 + grp), "r"(GT) : "memory");

@@ -1,13 +1,12 @@
 // Shared pieces of the kernels built on the GF(2) tile product
-// (gf2_mul_hopper.cu, gf2_mul_hopper_v2.cu, gf2_schur_hopper.cu,
-// gf2_post_hopper.cu): the pre-pass that bit-transposes B, the staging of
-// operand tiles in shared memory, the 1-bit tensor-core inner product and the
-// parity/pack epilogue.
+// (gf2_gemm_hopper.cu, gf2_schur_hopper.cu, gf2_post_hopper.cu): the 32x32
+// bit transpose of the pre-passes, the staging of operand tiles in shared
+// memory, the 1-bit tensor-core inner product and the parity/pack epilogue.
 //
 // Inner product: mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc.
 // It takes A rows packed along k, which is how the packed matrix lies in
-// memory, and B columns packed along k, i.e. B^T packed.  The pre-pass writes
-// B^T once, O(k*n/32) words, so the O(m*k*n) part never unpacks a bit:
+// memory, and B columns packed along k, i.e. B^T packed, which a pre-pass
+// writes once, O(k*n/32) words, so the O(m*k*n) part never unpacks a bit:
 // acc += popcount(a & b) over 256 contraction bits per instruction, and the
 // GF(2) product is bit 0 of the s32 count.
 #pragma once
@@ -23,9 +22,8 @@ constexpr int LDS = 40;       // shared row stride in words: 8 rows of a
                               // half-warp's 64-bit fragment loads fall on
                               // distinct banks (40 % 32 == 8)
 constexpr int THREADS = 256;  // 8 warps as 4 (rows) x 2 (columns)
-constexpr int TR_KW = 8;      // contraction words per block of the pre-pass
 
-// ---- pre-pass: BT[n, kw] = transpose of B[k, nw], 32x32 bits at a time ----
+// ---- 32x32 bit transpose ----
 
 // x[j] bit r  <-  x[r] bit j  (LSB-first; the butterfly of mzd.c:249-309).
 __device__ __forceinline__ void transpose32(uint32_t (&x)[32]) {
@@ -45,49 +43,6 @@ __device__ __forceinline__ void transpose32(uint32_t (&x)[32]) {
       }
     }
   }
-}
-
-// grid (ceil(nw/32), ceil(kw/TR_KW)), 256 threads.  Warp w of a block takes
-// contraction word kwi = blockIdx.y*TR_KW + w; lane l takes output word
-// nwi = blockIdx.x*32 + l and reads its 32 rows of B (coalesced across the
-// warp), so one thread holds a whole 32x32 bit block in registers.  Rows of B
-// at or beyond k read as zero: this is what makes the tail of the contraction
-// exact whatever A holds there.  The transposed words go through shared
-// memory so that each row of BT is written TR_KW words at a time.
-__global__ void __launch_bounds__(256)
-transpose_b_kernel(const uint32_t* __restrict__ b, long ldb, int k, int nw,
-                   uint32_t* __restrict__ bt, long ldbt, int kw) {
-  __shared__ uint32_t s[1024 * (TR_KW + 1)];
-  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
-  const int kwi = blockIdx.y * TR_KW + w;
-  const int nwi = blockIdx.x * 32 + l;
-  uint32_t x[32];
-#pragma unroll
-  for (int r = 0; r < 32; ++r) {
-    const long row = (long)kwi * 32 + r;
-    x[r] = (kwi < kw && row < k && nwi < nw) ? b[row * ldb + nwi] : 0u;
-  }
-  transpose32(x);
-#pragma unroll
-  for (int j = 0; j < 32; ++j) s[(j * 32 + l) * (TR_KW + 1) + w] = x[j];
-  __syncthreads();
-  for (int i = 0; i < 32; ++i) {
-    const int idx = i * 256 + threadIdx.x;
-    const int row = idx / TR_KW, c = idx % TR_KW;   // row = l*32 + j
-    const long nrow = (long)blockIdx.x * 1024 + row;
-    const int kk = blockIdx.y * TR_KW + c;
-    if (nrow < (long)nw * 32 && kk < kw)
-      bt[nrow * ldbt + kk] =
-          s[((row & 31) * 32 + (row >> 5)) * (TR_KW + 1) + c];
-  }
-}
-
-inline cudaError_t launch_transpose_b(const uint32_t* b, long ldb, int k,
-                                      int nw, uint32_t* bt, long ldbt, int kw,
-                                      cudaStream_t stream) {
-  dim3 grid((nw + 31) / 32, (kw + TR_KW - 1) / TR_KW);
-  transpose_b_kernel<<<grid, 256, 0, stream>>>(b, ldb, k, nw, bt, ldbt, kw);
-  return cudaGetLastError();
 }
 
 // ---- the tile ----
@@ -240,21 +195,6 @@ __device__ __forceinline__ void for_each_parity_word(const int (&acc)[2][8][4],
     f(m0 + wm * 32 + mt * 16 + g + 8 * (tig >> 1),
       n0 / 32 + wn * 2 + (tig & 1), mine);
   }
-}
-
-// The tile written to C once.  kXor: XOR into C with an atomic (several
-// blocks share a word) instead of a plain store.
-template <bool kXor>
-__device__ __forceinline__ void store_parity(const int (&acc)[2][8][4],
-                                             uint32_t* __restrict__ c,
-                                             long ldc, int m, int nw, int m0,
-                                             int n0) {
-  for_each_parity_word(acc, m0, n0, [&](int row, int word, uint32_t bits) {
-    if (row < m && word < nw) {
-      uint32_t* dst = c + (long)row * ldc + word;
-      if (kXor) atomicXor(dst, bits); else *dst = bits;
-    }
-  });
 }
 
 inline bool aligned16(const void* p, long ld_words) {

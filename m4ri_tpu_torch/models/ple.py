@@ -46,7 +46,7 @@ from ..ops.hopper_schur import (TILE_ROWS, TILE_WORDS,
                                 gf2_schur_update_dyn_hopper,
                                 gf2_schur_update_hopper,
                                 gf2_schur_update_plain)
-from ..ops.mul import pack_bits, unpack_bits
+from ..ops.mul import exact_float32, pack_bits, unpack_bits
 from ..utils.config import WORD_BITS, get_config
 
 __all__ = ["ple", "block_factor"]
@@ -61,9 +61,9 @@ def _round_up(x: int, m: int) -> int:
 def _dot2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """0/1 int8 @ 0/1 int8 mod 2 -> int8.  The product runs in float32,
     exact below 2**24 terms (an int8 matmul wraps on the CPU; TF32 would
-    round the counts, so it is off)."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    prod = a.to(torch.float32) @ b.to(torch.float32)
+    round the counts, so it is off around the product)."""
+    with exact_float32():
+        prod = a.to(torch.float32) @ b.to(torch.float32)
     return (prod.to(torch.int32) & 1).to(torch.int8)
 
 
@@ -73,12 +73,12 @@ def _unit_upper_inv(nilp: torch.Tensor, eye: torch.Tensor, steps: int):
     inside, the matrices stay float32 (XOR of 0/1 values is their sum mod 2,
     and sums below 2**24 are exact), so a step is two products and three
     elementwise passes and nothing is converted back and forth."""
-    torch.backends.cuda.matmul.allow_tf32 = False
     p = nilp.to(torch.float32)
     s = torch.fmod(eye.to(torch.float32) + p, 2)
-    for _ in range(steps):
-        p = torch.fmod(p @ p, 2)
-        s = torch.fmod(s + p @ s, 2)
+    with exact_float32():
+        for _ in range(steps):
+            p = torch.fmod(p @ p, 2)
+            s = torch.fmod(s + p @ s, 2)
     return s.to(torch.int8)
 
 
@@ -146,6 +146,8 @@ def _block_factor_impl(data: torch.Tensor, m: int, n: int, nb: int,
     post = panel_post_hopper if hopper else panel_post_plain
     tiles_j = -(-w_pad // TILE_WORDS)
     dyn = dyn_skip and m_pad % TILE_ROWS == 0 and w_pad % TILE_WORDS == 0
+    # the panel's U rows, written anew each panel: one buffer for the sweep
+    up = torch.empty((nb, w_pad), dtype=torch.int32, device=dev)
 
     r = 0
     for t in range(n_panels):
@@ -223,7 +225,10 @@ def _block_factor_impl(data: torch.Tensor, m: int, n: int, nb: int,
         l11 = unpack_bits(Lpw[r_in : r_in + nb], torch.int8)
         s_pk = pack_bits(_unit_upper_inv(l11, eye_nb, steps))
         a_block = A[r_in : r_in + nb]
-        up = (gf2_mul_hopper if hopper else gf2_mul_plain)(s_pk, a_block)
+        if hopper:
+            gf2_mul_hopper(s_pk, a_block, out=up)
+        else:
+            up.copy_(gf2_mul_plain(s_pk, a_block))
         up[rank_panel:] = 0
         c0n = (t + 1) * nbw
         up[:, :c0n] = 0          # only trailing columns take the Schur update

@@ -2,53 +2,31 @@
 
 Replaces the TPU kernel ``gf2_mul_pallas_v2`` (m4ri_tpu/ops/pallas_mul2.py,
 ``_mul2_padded``).  Same contract as ``gf2_mul_hopper``; in addition
-``accumulate=True`` gives ``out ^= A*B``.
+``accumulate=True`` gives ``out ^= A*B``, which is ``addmul``'s update with
+no temporary.
 
-The contraction is cut into chunks of ``CHUNK_WORDS`` words and a block
-computes the packed parity of one (tile, chunk) pair.  The TPU kernel has
+It launches the same kernel as ``gf2_mul_hopper`` (csrc/gf2_gemm_hopper.cu,
+see ops/hopper_mul.py): the contraction stays inside the block and C is
+written once, or read and written once with ``accumulate``, by the one
+block that owns its tile.  What this entry adds is the split of the
+contraction across blocks (``gemm_plan``), taken only where the tiles of C
+do not fill the card and the contraction is more than one stage deep: the
+one case a split buys blocks in flight.  Split, C is zeroed on the stream
+(not with ``accumulate``) and each run XORs its words in with atomics; XOR
+commutes, so the result is exact in any order.  The TPU kernel instead has
 its first chunk write C and the later ones read-modify-write it, which holds
-only because its grid runs in order.  Blocks on the card run in no order, so
-here C is zeroed on the stream and every chunk XORs its words in with an
-atomic: XOR commutes, so the result is exact in any order.  With
-``accumulate`` the zeroing is skipped, which is ``addmul``'s C ^= A*B with no
-temporary and no extra pass over C.
+only because its grid runs in order.
 
-What bounds it on an H100: operations (see ops/hopper_mul.py); the inner
-product is the same 1-bit tensor-core instruction on the packed words, after
-the same B^T pre-pass.  Cutting the contraction across blocks costs one
-atomic per word of C per chunk, and buys blocks in flight where the tiles of
-C alone would not fill the card.
+What bounds it on an H100: operations (see ops/hopper_mul.py).
 """
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
-from .hopper_mul import (_MAX_GRID_YZ, bt_scratch, check_operands,
-                         gf2_mul_plain)
+from .hopper_mul import check_operands, gf2_mul_plain, launch_gemm
 
-__all__ = ["gf2_mul_hopper_v2", "CHUNK_WORDS"]
-
-# Contraction words per chunk (2048 bits); a whole number of the 32-word
-# steps of csrc/gf2_tile.cuh (KC), which the kernel's loop relies on.
-CHUNK_WORDS = 64
-
-
-_VOID, _LONG, _INT = ctypes.c_void_p, ctypes.c_long, ctypes.c_int
-
-
-@functools.lru_cache(maxsize=None)
-def _fn():
-    from ._build import load
-    fn = load("gf2_mul_hopper_v2").gf2_mul_hopper_v2_launch
-    # pointers and the stream as c_void_p: ctypes would cut them to 32 bits
-    fn.argtypes = [_VOID, _LONG, _VOID, _LONG, _VOID, _LONG, _VOID, _LONG,
-                   _INT, _INT, _INT, _INT, _INT, _INT, _VOID]
-    fn.restype = _INT
-    return fn
+__all__ = ["gf2_mul_hopper_v2"]
 
 
 def gf2_mul_hopper_v2(a: torch.Tensor, b: torch.Tensor,
@@ -58,35 +36,23 @@ def gf2_mul_hopper_v2(a: torch.Tensor, b: torch.Tensor,
     ``out`` may be a strided view and is updated in place; it must not
     overlap a or b.  CPU tensors take the plain version; CUDA tensors launch
     the kernel or raise."""
-    check_operands(a, b, out)
+    shape = check_operands(a, b, out)
     if accumulate and out is None:
         raise ValueError("accumulate=True needs the matrix to accumulate into")
-    m, kw = a.shape
-    k, nw = b.shape
-    if -(-kw // CHUNK_WORDS) > _MAX_GRID_YZ:
-        raise ValueError(f"{kw} contraction words in chunks of {CHUNK_WORDS} "
-                         "exceed the launch grid")
     if not a.is_cuda:
         res = gf2_mul_plain(a, b)
         if out is None:
             return res
         return out.bitwise_xor_(res) if accumulate else out.copy_(res)
+    m, _, k, nw = shape
     if out is None:
         out = torch.empty((m, nw), dtype=torch.int32, device=a.device)
     if m == 0 or nw == 0:
         return out
     if k == 0:
         return out if accumulate else out.zero_()
-    bt = bt_scratch(kw, nw, a.device)
-    fn = _fn()
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0),
-                 bt.data_ptr(), bt.stride(0), out.data_ptr(), out.stride(0),
-                 m, kw, k, nw, CHUNK_WORDS, int(accumulate), stream)
+    launch_gemm(a, b, out, shape, accumulate, True)
     gf2_mul_hopper_v2.launches += 1
-    if err:
-        raise RuntimeError(f"gf2_mul_hopper_v2: CUDA error {err} at launch")
     return out
 
 

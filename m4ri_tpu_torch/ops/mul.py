@@ -28,7 +28,24 @@ from ..core.transpose import transpose
 from ..utils.config import WORD_BITS, get_config
 
 __all__ = ["unpack_bits", "pack_bits", "mul_naive", "mul", "addmul",
-           "mul_packed_data", "addmul_packed_data_"]
+           "mul_packed_data", "addmul_packed_data_", "exact_float32"]
+
+
+class exact_float32:
+    """``with exact_float32():`` float32 products on the card run in full
+    float32, then the caller's setting comes back.  TF32 keeps about 10 bits
+    of a sum, so it would round the 0/1 counts whose parity the GF(2)
+    products read; sums below 2**24 are exact in float32."""
+
+    __slots__ = ("_saved",)
+
+    def __enter__(self):
+        flags = torch.backends.cuda.matmul
+        self._saved = flags.allow_tf32
+        flags.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        torch.backends.cuda.matmul.allow_tf32 = self._saved
 
 
 def _shifts(device) -> torch.Tensor:
@@ -61,9 +78,10 @@ def _dot_parity(a_u: torch.Tensor, b_u: torch.Tensor) -> torch.Tensor:
     """(unpacked A) @ (unpacked B) mod 2, packed.  float32 operands and a
     float32 result: exact for k < 2**24.  (An int8 matmul on the CPU wraps
     at 8 bits, a bf16/fp16 one on the card rounds its result; TF32 is
-    switched off because it would round the counts.)"""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return pack_bits((a_u @ b_u).to(torch.int32) & 1)
+    switched off around the product because it would round the counts.)"""
+    with exact_float32():
+        prod = a_u @ b_u
+    return pack_bits(prod.to(torch.int32) & 1)
 
 
 def _on_card(t: torch.Tensor) -> bool:

@@ -83,6 +83,109 @@ def test_v2_accumulate(card):
         assert torch.equal(got, want), k
 
 
+# shapes that reach the corners of the GEMM kernel (csrc/gf2_gemm_hopper.cu):
+# m < 64 (one warpgroup's rows, most of them past the edge), k = 1, k not a
+# multiple of 256, nw = 1, tiles that do not fill the card with a deep
+# contraction (v2 splits it), more tiles than blocks
+GEMM_SHAPES = [(50, 3000, 700), (17, 1, 40), (100, 1, 300), (129, 257, 513),
+               (200, 4000, 20), (200, 700, 32), (300, 4200, 1100),
+               (4096, 4096, 4096), (1000, 12000, 600)]
+
+
+@pytest.mark.parametrize("kernel", [gf2_mul_hopper, gf2_mul_hopper_v2],
+                         ids=["v1", "v2"])
+@pytest.mark.parametrize("m,k,n", GEMM_SHAPES)
+def test_gemm_corners(card, kernel, m, k, n):
+    a, b = _packed(21, m, k, card), _packed(22, k, n, card)
+    out = _packed(23, m, n, card)          # garbage: every word is written
+    kernel(a, b, out=out)
+    torch.cuda.synchronize()
+    assert torch.equal(out, gf2_mul_plain(a, b))
+
+
+@pytest.mark.parametrize("kernel", [gf2_mul_hopper, gf2_mul_hopper_v2],
+                         ids=["v1", "v2"])
+@pytest.mark.parametrize("nb,n", [(512, 16384), (1024, 32768)])
+def test_gemm_u_row_shapes(card, kernel, nb, n):
+    """The PLE panel's U rows: s [nb, nb] times the panel's rows [nb, n] of
+    the padded matrix, a view of a wider parent, into a kept buffer."""
+    s = _packed(24, nb, nb, card)
+    parent = _packed(25, nb + 40, n + 512, card)
+    rows = parent[20:20 + nb, : n // 32]
+    out = torch.empty((nb, n // 32), dtype=torch.int32, device=card)
+    for _ in range(2):
+        kernel(s, rows, out=out)
+    torch.cuda.synchronize()
+    assert torch.equal(out, gf2_mul_plain(s, rows.contiguous()))
+
+
+def test_gemm_8192_quadrant_views(card):
+    """Strassen's base products at n=16384: quadrant views of 16384
+    parents, as plain product, as ``out=`` and with ``accumulate``."""
+    a = _packed(26, 16384, 16384, card)
+    b = _packed(27, 16384, 16384, card)
+    a12, b21 = a[:8192, 256:], b[8192:, :256]
+    want = torch.cat([gf2_mul_plain(a12[r:r + 2048], b21)
+                      for r in range(0, 8192, 2048)])
+    assert torch.equal(gf2_mul_hopper_v2(a12, b21), want)
+    c = _packed(28, 16384, 16384, card)
+    c22 = c[8192:, 256:]
+    before = c22.clone()
+    gf2_mul_hopper_v2(a12, b21, out=c22, accumulate=True)
+    torch.cuda.synchronize()
+    assert torch.equal(c22, before ^ want)
+    assert torch.equal(gf2_mul_hopper(a12, b21), want)
+
+
+@pytest.mark.parametrize("kernel", [gf2_mul_hopper, gf2_mul_hopper_v2],
+                         ids=["v1", "v2"])
+@pytest.mark.parametrize("offset,stride", [(1, 4096), (4, 4095), (3, 4099)])
+def test_gemm_unaligned_a(card, kernel, offset, stride):
+    """An A whose base or row stride is not 16-byte aligned (a tensor copy
+    cannot read it): copied into aligned scratch by a kernel, then the
+    same product."""
+    flat = _packed(29, 1, 32 * (offset + 700 * stride), card)[0]
+    a = flat[offset:offset + 700 * stride].view(700, stride)[:, :90]
+    b = _packed(30, 90 * 32 - 11, 2000, card)
+    got = kernel(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, gf2_mul_plain(a.contiguous(), b))
+
+
+@pytest.mark.parametrize("m,k,n", [(300, 4200, 1100), (2048, 4096, 4096),
+                                   (40, 9000, 70)])
+def test_v2_accumulate_split_and_not(card, m, k, n):
+    """C ^= A*B with the contraction split across blocks (few tiles, deep
+    k: atomics into C) and kept in the block (many tiles)."""
+    from m4ri_tpu_torch.ops.hopper_mul import gemm_plan
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    a, b = _packed(31, m, k, card), _packed(32, k, n, card)
+    c = _packed(33, m, n, card)
+    want = c ^ gf2_mul_plain(a, b)
+    gf2_mul_hopper_v2(a, b, out=c, accumulate=True)
+    torch.cuda.synchronize()
+    assert torch.equal(c, want)
+    splits = gemm_plan(m, -(-n // 32), -(-k // 32), sms, True)[0]
+    assert (splits > 1) == (m * n < 1_000_000), splits
+
+
+@pytest.mark.parametrize("kernel", [gf2_mul_hopper, gf2_mul_hopper_v2],
+                         ids=["v1", "v2"])
+def test_gemm_call_does_not_synchronise(card, kernel):
+    a, b = _packed(34, 4096, 4096, card), _packed(35, 4096, 4096, card)
+    out = torch.empty((4096, 128), dtype=torch.int32, device=card)
+    kernel(a, b, out=out)              # scratch and library in place
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        kernel(a, b, out=out)
+        kernel(a[:100, 1:], b[32:], out=out[:100])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert torch.equal(out[:100], gf2_mul_plain(a[:100, 1:].contiguous(), b[32:]))
+
+
 def test_wrappers_raise_on_what_they_do_not_take(card):
     a, b = _packed(9, 64, 64, card), _packed(10, 64, 64, card)
     with pytest.raises(TypeError):

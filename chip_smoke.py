@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's multiply and factorization paths once on
-the GPU.
+"""Drive the PyTorch/CUDA port's multiply, factorization and solver paths
+once on the GPU.
 
     python3 chip_smoke.py [--seed N]
 
@@ -9,10 +9,16 @@ and numpy only.  It builds the CUDA kernels from ``m4ri_tpu_torch/csrc``,
 holds each of the six against its plain PyTorch version on the card
 (equality of packed words and index arrays: GF(2) is exact, the tolerance is
 0), then drives the public entry points: ``mul`` / ``addmul`` / squaring at
-n=4096 (the size the JAX package's bench times) and n=16384 (where Strassen
-engages); ``ple`` / ``rank`` / ``block_factor`` at n=16384 and n=32768 (the
+n=4096 (the size the JAX package's bench times) and n=16384 (the direct
+product by the card's default, and one Strassen level with the cutoff forced); ``ple`` / ``rank`` / ``block_factor`` at n=16384 and n=32768 (the
 wide panel), on inputs whose windows go deficient, and on the reference C
-library's golden vectors, each held to the plain engine on the card.  The
+library's golden vectors, each held to the plain engine on the card; then
+the solver API at the JAX package's driver sizes: ``pluq`` 32768^2, the four
+TRSMs at 32768^2, RREF 16384^2 by both strategies, ``invert`` 16384^2,
+``solve_left`` 32768^2 with 256 right-hand sides, ``kernel_left`` 4096^2 and
+the golden ``pluq`` / ``rref`` vectors, each held to a check that does not
+go through the code under test (the plain engine, a sequential oracle, a
+float32 product of the unpacked bits, or the C library's hash).  The
 launch counters show that the kernels ran.  One JSON object per phase; the
 ``kernels`` line, the card's name and power limit, and last of all
 ``{"ok": true, "device": {...}}``.  Any mismatch, build failure or launch
@@ -42,6 +48,7 @@ import m4ri_tpu_torch as m4
 from m4ri_tpu_torch.benches.peaks import (PEAK_B1_OPS_PER_S, PEAK_BYTES_PER_S,
                                           schur_bound)
 from m4ri_tpu_torch.benches.probe_mma import probe as probe_mma
+from m4ri_tpu_torch.core import permutation as perm_mod
 from m4ri_tpu_torch.core.bitmatrix import BitMatrix, mask_padding
 from m4ri_tpu_torch.models import ple as ple_mod
 from m4ri_tpu_torch.ops import _build, hopper_panel, hopper_post
@@ -175,6 +182,23 @@ def plain_rowblocks(a: torch.Tensor, b: torch.Tensor, rows: int = 1024):
     """The plain version, a block of rows at a time (bounded memory)."""
     return torch.cat([gf2_mul_plain(a[r:r + rows], b)
                       for r in range(0, a.shape[0], rows)])
+
+
+def with_config(fn, **fields):
+    """Run ``fn`` with Config fields set as a user would set them (from the
+    environment), then restore the defaults."""
+    keys = {f"M4RI_TPU_TORCH_{k.upper()}": str(int(v)) for k, v in fields.items()}
+    os.environ.update(keys)
+    config_mod.get_config.cache_clear()
+    try:
+        cfg = get_config()
+        check(all(getattr(cfg, k) == v for k, v in fields.items()),
+              f"the config did not take {fields}")
+        return fn()
+    finally:
+        for k in keys:
+            del os.environ[k]
+        config_mod.get_config.cache_clear()
 
 
 # --------------------------------------------------------------- phases ---
@@ -650,6 +674,12 @@ def phase_mul_routes(seed: int) -> dict:
 
 
 def phase_strassen(seed: int) -> dict:
+    """mul / addmul / mul(A, A) at n=16384: with the card's defaults the
+    direct kernel product (Strassen's level costs time there, see
+    benches/tune_cutoffs.py), and with the cutoff forced to 8192 one
+    Strassen level over 8192 quadrant views, so that the Strassen code stays
+    driven on the card.  Both held to the direct product and the plain
+    version."""
     n = 16384
     rng = np.random.default_rng(seed + 2)
     A = m4.from_packed(packed(rng, n, n), n)
@@ -658,21 +688,31 @@ def phase_strassen(seed: int) -> dict:
     total = {name: 0 for name in GEMMS}
     per_op = {}
     outs = {}
-    for op, run in [("mul", lambda: m4.mul(A, B)),
-                    ("addmul", lambda: m4.addmul(C, A, B)),
-                    ("sqr", lambda: m4.mul(A, A))]:
-        zero_counts()
-        outs[op] = run()
-        torch.cuda.synchronize()
-        per_op[op] = gemm_counts()
-        for name in total:
-            total[name] += per_op[op][name]
-    check(per_op["mul"] == {"gf2_mul_hopper": 0, "gf2_mul_hopper_v2": 7},
-          f"Strassen mul at n=16384 launched {per_op['mul']}, want 7 base products")
-    for op in ("addmul", "sqr"):
-        check(per_op[op]["gf2_mul_hopper_v2"] == 7, f"{op}: {per_op[op]}")
-    # the operands the path gives the kernel: 8192-wide quadrant views of
-    # the 16384 parents, held to the plain version on the same views
+    ops = [("mul", lambda: m4.mul(A, B)), ("addmul", lambda: m4.addmul(C, A, B)),
+           ("sqr", lambda: m4.mul(A, A))]
+
+    def drive(route):
+        for op, run in ops:
+            zero_counts()
+            outs[f"{op}_{route}"] = run()
+            torch.cuda.synchronize()
+            per_op[f"{op}_{route}"] = gemm_counts()
+            for name in total:
+                total[name] += per_op[f"{op}_{route}"][name]
+
+    check(get_config().strassen_cutoff * 2 > n,
+          "the card's default engages Strassen at n=16384")
+    drive("default")
+    with_config(lambda: drive("strassen"), strassen_cutoff=8192)
+    for op, _ in ops:
+        check(per_op[f"{op}_default"] == {"gf2_mul_hopper": 0, "gf2_mul_hopper_v2": 1},
+              f"{op} at n=16384 launched {per_op[f'{op}_default']}, want the "
+              "direct product once")
+        check(per_op[f"{op}_strassen"] == {"gf2_mul_hopper": 0, "gf2_mul_hopper_v2": 7},
+              f"{op} at n=16384, cutoff 8192, launched {per_op[f'{op}_strassen']}, "
+              "want 7 base products")
+    # the operands the Strassen level gives the kernel: 8192-wide quadrant
+    # views of the 16384 parents, held to the plain version on the same views
     h, hw = n // 2, n // 64
     a11, b11 = A.data[:h, :hw], B.data[:h, :hw]
     q = gf2_mul_hopper_v2(a11, b11)
@@ -684,22 +724,25 @@ def phase_strassen(seed: int) -> dict:
     ab = gf2_mul_hopper_v2(A.data, B.data)
     check(torch.equal(ab, plain_rowblocks(A.data, B.data)),
           "direct product at n=16384 differs from the plain version")
-    check(torch.equal(outs["mul"].data, ab), "Strassen mul differs")
-    check(torch.equal(outs["addmul"].data, C.data ^ ab), "Strassen addmul differs")
     aa = gf2_mul_hopper_v2(A.data, A.data)
     check(torch.equal(aa, plain_rowblocks(A.data, A.data)),
           "direct square at n=16384 differs from the plain version")
-    check(torch.equal(outs["sqr"].data, aa), "Strassen squaring differs")
+    for route in ("default", "strassen"):
+        check(torch.equal(outs[f"mul_{route}"].data, ab), f"mul ({route}) differs")
+        check(torch.equal(outs[f"addmul_{route}"].data, C.data ^ ab),
+              f"addmul ({route}) differs")
+        check(torch.equal(outs[f"sqr_{route}"].data, aa), f"squaring ({route}) differs")
     del outs, ab, aa
-    t = {"mul": time_ms(lambda: m4.mul(A, B), runs=3, warmup=1),
-         "addmul": time_ms(lambda: m4.addmul(C, A, B), runs=3, warmup=1),
-         "sqr": time_ms(lambda: m4.mul(A, A), runs=3, warmup=1),
-         "direct_v2": time_ms(lambda: gf2_mul_hopper_v2(A.data, B.data),
-                              runs=3, warmup=1),
-         "base_v2_8192_views": time_ms(lambda: gf2_mul_hopper_v2(a11, b11),
-                                       runs=3, warmup=1)}
+    t = {f"{op}_default": time_ms(run, runs=3, warmup=1) for op, run in ops}
+    t.update(with_config(lambda: {f"{op}_strassen": time_ms(run, runs=3, warmup=1)
+                                  for op, run in ops}, strassen_cutoff=8192))
+    t["direct_v2"] = time_ms(lambda: gf2_mul_hopper_v2(A.data, B.data),
+                             runs=3, warmup=1)
+    t["base_v2_8192_views"] = time_ms(lambda: gf2_mul_hopper_v2(a11, b11),
+                                      runs=3, warmup=1)
     emit("strassen_16384", ok=True, launches=per_op, ms=t,
-         mul_tbitops_per_s=2 * n**3 / t["mul"]["median"] / 1e9,
+         mul_tbitops_per_s=2 * n**3 / t["mul_default"]["median"] / 1e9,
+         strassen_cutoff=get_config().strassen_cutoff,
          peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
          **bound(n, n, n), base_8192_bound_ms=bound(h, h, h)["bound_ms"])
     return total
@@ -762,18 +805,6 @@ def time_host_ms(fn, runs: int, warmup: int = 1) -> dict:
         ts.append((time.perf_counter() - t0) * 1e3)
     return {"median": statistics.median(ts), "min": min(ts), "max": max(ts),
             "runs": runs}
-
-
-def with_schur_dyn(fn):
-    """Run ``fn`` with Config.schur_dyn on, as a user would set it."""
-    os.environ["M4RI_TPU_TORCH_SCHUR_DYN"] = "1"
-    config_mod.get_config.cache_clear()
-    try:
-        check(get_config().schur_dyn, "schur_dyn did not switch on")
-        return fn()
-    finally:
-        del os.environ["M4RI_TPU_TORCH_SCHUR_DYN"]
-        config_mod.get_config.cache_clear()
 
 
 def same_factors(got, want, what: str) -> None:
@@ -851,8 +882,8 @@ def phase_ple_16384(seed: int) -> dict:
                                    for w in caught),
         "host_syncs": ple_mod.block_factor.host_syncs - syncs0}
     # the persistent Schur entry instead of the gridded one
-    got_dyn, launched, _, misses = with_schur_dyn(
-        lambda: factor_counted(A, True))
+    got_dyn, launched, _, misses = with_config(
+        lambda: factor_counted(A, True), schur_dyn=True)
     add_counts(total, launched)
     same_factors(got_dyn, want, "block_factor 16384 with schur_dyn")
     check(launched["gf2_schur_update_dyn_hopper"] == panels
@@ -876,8 +907,8 @@ def phase_ple_16384(seed: int) -> dict:
     del plain_m, got, got_dyn
     t = {"ple": time_host_ms(lambda: m4.ple(A), runs=5),
          "rank": time_host_ms(lambda: m4.rank(A), runs=5),
-         "ple_schur_dyn": with_schur_dyn(
-             lambda: time_host_ms(lambda: m4.ple(A), runs=5)),
+         "ple_schur_dyn": with_config(
+             lambda: time_host_ms(lambda: m4.ple(A), runs=5), schur_dyn=True),
          "compress_l": time_host_ms(
              lambda: ple_mod._compress_l_impl(want[0], want[2], want[3], n, n),
              runs=5),
@@ -997,32 +1028,345 @@ def phase_ple_32768(seed: int) -> dict:
     return total
 
 
-def phase_golden_ple() -> dict:
-    """The reference C library's own rank, P, Q and L|E body, on the card."""
+def golden_records(op: str, want: int) -> list:
     golden = HERE / "tests" / "data" / "golden_reference.jsonl"
     recs = [json.loads(ln) for ln in golden.read_text().splitlines()]
-    recs = [r for r in recs if r["op"] == "ple"]
-    check(len(recs) == 8, f"want 8 golden ple records, found {len(recs)}")
+    recs = [r for r in recs if r["op"] == op]
+    check(len(recs) == want, f"want {want} golden {op} records, found {len(recs)}")
+    return recs
+
+
+def golden_input(rec):
+    """The case input, drawn in the reference C library's order."""
+    if rec["k"]:
+        g = GlibcRandom(17)
+        b = reference_random_data(rec["m"], rec["k"], rng=g)
+        c = reference_random_data(rec["k"], rec["n"], rng=g)
+        A = m4.mul(m4.from_reference(b, rec["k"]),
+                   m4.from_reference(c, rec["n"]))
+    else:
+        A = m4.randomize_reference(rec["m"], rec["n"], seed=17)
+    check(fnv1a_bits(m4.to_numpy(A)) == rec["in_hash"],
+          f"golden {rec['op']} {rec['kind']}: in_hash")
+    return A
+
+
+def phase_golden_ple() -> dict:
+    """The reference C library's own rank, P, Q and L|E body, on the card."""
+    recs = golden_records("ple", 8)
+    inputs = [golden_input(rec) for rec in recs]
     zero_counts()
-    for rec in recs:
+    for rec, A in zip(recs, inputs):
         what = f"golden ple {rec['kind']} {rec['m']}x{rec['n']}"
-        if rec["k"]:
-            g = GlibcRandom(17)
-            b = reference_random_data(rec["m"], rec["k"], rng=g)
-            c = reference_random_data(rec["k"], rec["n"], rng=g)
-            A = m4.mul(m4.from_reference(b, rec["k"]),
-                       m4.from_reference(c, rec["n"]))
-        else:
-            A = m4.randomize_reference(rec["m"], rec["n"], seed=17)
-        check(fnv1a_bits(m4.to_numpy(A)) == rec["in_hash"], f"{what}: in_hash")
         M, P, Q, r = m4.ple(A)
         check(r == rec["rank"], f"{what}: rank {r}")
         check(P.tolist() == rec["P"], f"{what}: P")
         check(Q.tolist() == rec["Q"], f"{what}: Q")
         check(fnv1a_bits(m4.to_numpy(M)) == rec["out_hash"], f"{what}: out_hash")
     torch.cuda.synchronize()
-    got = counts(FACTOR_KERNELS)
+    got = counts()
     emit("golden_ple", ok=True, records=len(recs), launches=got)
+    return got
+
+
+# ------------------------------------------------------ the solver API ---
+
+# the reference C library on the host CPU, seconds (BASELINE.md)
+C_LIBRARY_S = {"pluq_32768": 7.0605, "trsm_lower_right_32768": 24.199,
+               "trsm_lower_left_32768": 9.156, "trsm_upper_right_32768": 9.786,
+               "trsm_upper_left_32768": 11.002, "rank_rref_16384": 1.2349,
+               "invert_16384": 4.6274, "solve_32768_b256": 7.0605}
+C_LIBRARY_WHAT = {"pluq_32768": "PLE 32768^2", "solve_32768_b256": "PLE 32768^2",
+                  "rank_rref_16384": "M4RI RREF 16384^2",
+                  "invert_16384": "inversion 16384^2"}
+
+
+def unpack_f32(words: torch.Tensor, ncols: int) -> torch.Tensor:
+    """0/1 float32 [rows, ncols] of packed words (unpacked here, not by the
+    code under test)."""
+    shifts = torch.arange(32, dtype=torch.int32, device=words.device)
+    bits = (words[:, :, None] >> shifts) & 1
+    return bits.reshape(words.shape[0], -1)[:, :ncols].to(torch.float32)
+
+
+def pack_parity(p: torch.Tensor) -> torch.Tensor:
+    """float32 sums [rows, n] -> packed int32 words of their parities."""
+    rows, n = p.shape
+    w = (n + 31) // 32
+    bits = torch.nn.functional.pad(p.to(torch.int32) & 1, (0, 32 * w - n))
+    shifts = torch.arange(32, dtype=torch.int32, device=p.device)
+    return (bits.view(rows, w, 32) << shifts).sum(dim=2, dtype=torch.int32)
+
+
+def f32_product(a: torch.Tensor, k: int, b: torch.Tensor, n: int,
+                a_tri: str = "", b_tri: str = "", rows: int = 4096):
+    """Packed GF(2) product by a float32 product of the unpacked bits in row
+    blocks, TF32 off: exact below 2**24 terms, and independent of the port's
+    product paths.  ``a_tri`` / ``b_tri`` ("upper" or "lower") keep only that
+    inclusive triangle of a square operand first."""
+    bf = unpack_f32(b, n)
+    if b_tri:
+        bf = bf.triu() if b_tri == "upper" else bf.tril()
+    out = []
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for r0 in range(0, a.shape[0], rows):
+            af = unpack_f32(a[r0:r0 + rows], k)
+            if a_tri:
+                af = af.triu(r0) if a_tri == "upper" else af.tril(r0)
+            out.append(pack_parity(af @ bf))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    return torch.cat(out)
+
+
+def entry_times(name: str, fn, runs: int = 3) -> dict:
+    """Host-clock time of an entry point beside the C library's."""
+    t = time_host_ms(fn, runs=runs)
+    return {**t, "c_library_ms": C_LIBRARY_S[name] * 1e3,
+            "c_library_op": C_LIBRARY_WHAT.get(name, name),
+            "speedup_over_c_library": C_LIBRARY_S[name] * 1e3 / t["median"]}
+
+
+def driven(fn):
+    """(result, launches): ``fn`` with every count set to 0 just before."""
+    zero_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, counts()
+
+
+def phase_pluq_32768(seed: int) -> dict:
+    """PLUQ of a dense random 32768^2: P, Q and rank are ple's, and the body
+    is ple's after the sequential triangular column swaps.  A dense random
+    matrix pivots on (nearly) every column, so Q is (nearly) the identity;
+    the same input with bands of zero columns moves most pivot columns and
+    makes long swap chains, held to the same checks."""
+    n = 32768
+    rng = np.random.default_rng(seed + 20)
+    a = packed(rng, n, n)
+    A = m4.from_packed(a, n)
+    (M, P, Q, r), launched = driven(lambda: m4.pluq(A))
+    w = n // 32
+    a[:, w // 25: w // 25 + w // 32] = 0      # columns 1280-2303 at n=32768
+    a[:, w // 2] &= 0x0F0F0F0F                # and every other nibble of a word
+    Az = m4.from_packed(a, n)
+    del a
+    outs = {"dense": (A, (M, P, Q, r)), "zeroed_columns": (Az, m4.pluq(Az))}
+    cases = {}
+    for what, (X, (M, P, Q, r)) in outs.items():
+        Me, Pe, Qe, re = m4.ple(X)
+        check(r == re and torch.equal(P, Pe) and torch.equal(Q, Qe),
+              f"pluq 32768 {what}: P, Q or rank differ from ple's")
+        check(valid_swaps(P, Q, r, n, n), f"pluq 32768 {what}: not swap arrays")
+        t0 = time.perf_counter()
+        want = perm_mod.apply_p_right_trans_tri_seq(Me, Qe)
+        torch.cuda.synchronize()
+        seq_s = time.perf_counter() - t0
+        check(torch.equal(M.data, want.data),
+              f"pluq 32768 {what}: the body differs from ple's after the "
+              "sequential swaps")
+        moved = int((Q != torch.arange(n, dtype=torch.int32, device=DEV)).sum())
+        cases[what] = {"rank": r, "pivot_columns_moved": moved,
+                       "sequential_oracle_seconds": seq_s}
+        del Me, want, M
+    check(cases["zeroed_columns"]["pivot_columns_moved"] > n // 2,
+          f"the zeroed columns moved few pivots: {cases}")
+    t = {"pluq": entry_times("pluq_32768", lambda: m4.pluq(A)),
+         "pluq_zeroed_columns": entry_times("pluq_32768", lambda: m4.pluq(Az)),
+         "apply_p_right_trans_tri_zeroed_columns": time_host_ms(
+             lambda: perm_mod.apply_p_right_trans_tri(Az, outs["zeroed_columns"][1][2]),
+             runs=3)}
+    emit("pluq_32768", ok=True, launches=launched, cases=cases, ms=t)
+    return launched
+
+
+def phase_pluq_golden() -> dict:
+    """The reference C library's own rank, P, Q and L\\U body of mzd_pluq."""
+    recs = golden_records("pluq", 8)
+    inputs = [golden_input(rec) for rec in recs]
+    zero_counts()
+    outs = [m4.pluq(A) for A in inputs]
+    torch.cuda.synchronize()
+    got = counts()
+    for rec, (M, P, Q, r) in zip(recs, outs):
+        what = f"golden pluq {rec['kind']} {rec['m']}x{rec['n']}"
+        check(r == rec["rank"], f"{what}: rank {r}")
+        check(P.tolist() == rec["P"] and Q.tolist() == rec["Q"], f"{what}: P, Q")
+        check(fnv1a_bits(m4.to_numpy(M)) == rec["out_hash"], f"{what}: out_hash")
+    emit("pluq_golden", ok=True, records=len(recs), launches=got)
+    return got
+
+
+def unit_diagonal(words: torch.Tensor) -> torch.Tensor:
+    """The square matrix with its diagonal set (the rest kept as junk)."""
+    n = words.shape[0]
+    idx = torch.arange(n, device=words.device)
+    out = words.clone()
+    out[idx, idx // 32] |= torch.ones_like(out[:, 0]) << (idx % 32).to(torch.int32)
+    return out
+
+
+def phase_trsm_32768(seed: int) -> dict:
+    """The four TRSMs of a random unit triangular T with junk in the other
+    triangle and a 32768^2 B: T X == B (left) or X T == B (right) by the
+    float32 product."""
+    n = 32768
+    rng = np.random.default_rng(seed + 21)
+    T = m4.from_packed(unit_diagonal(packed(rng, n, n)), n)
+    B = m4.from_packed(packed(rng, n, n), n)
+    total, report = {}, {}
+    for name in ("trsm_upper_left", "trsm_lower_left", "trsm_upper_right",
+                 "trsm_lower_right"):
+        fn = getattr(m4, name)
+        X, launched = driven(lambda: fn(T, B))
+        add_counts(total, launched)
+        tri = "upper" if "upper" in name else "lower"
+        if name.endswith("left"):
+            got = f32_product(T.data, n, X.data, n, a_tri=tri)
+        else:
+            got = f32_product(X.data, n, T.data, n, b_tri=tri)
+        check(torch.equal(got, B.data), f"{name} 32768: the product is not B")
+        del X, got
+        report[name] = {"launches": launched,
+                        "ms": entry_times(f"{name}_32768", lambda: fn(T, B))}
+    emit("trsm_32768", ok=True, n=n, cases=report,
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return total
+
+
+def phase_rank_rref_16384(seed: int) -> dict:
+    """RREF of a dense random 16384^2 by both strategies: equal to each
+    other, rank(A) pivots, pivot columns the identity, and U_rr E == U_top
+    with U_top the REF of the plain engine."""
+    n = 16384
+    rng = np.random.default_rng(seed + 22)
+    A = m4.from_packed(packed(rng, n, n), n)
+    total = {}
+    (E, r), launched = driven(lambda: m4.echelonize(A, full=True))
+    add_counts(total, launched)
+    (Ep, rp), launched_p = driven(
+        lambda: m4.echelonize(A, full=True, strategy="pluq"))
+    add_counts(total, launched_p)
+    rk = m4.rank(A)
+    check(r == rp == rk, f"rref 16384: ranks {r}, {rp}, rank {rk}")
+    check(torch.equal(E.data, Ep.data), "rref 16384: m4ri and pluq differ")
+    data, _, q, r_plain = m4.block_factor(A, preserve_l=False, engine="plain")
+    check(r_plain == r, f"rref 16384: the plain engine's rank is {r_plain}")
+    piv = q[:r].long()
+    ut = unpack_f32(data[:r], n)
+    ef = unpack_f32(E.data[:r], n)
+    check(not bool(E.data[r:].any()), "rref 16384: rows past the rank not zero")
+    check(torch.equal(ef[:, piv], torch.eye(r, device=DEV)),
+          "rref 16384: the pivot columns are not the identity")
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        prod = torch.fmod(ut[:, piv] @ ef, 2)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    check(torch.equal(prod, ut), "rref 16384: U_rr E differs from U_top")
+    del data, ut, ef, prod, Ep
+    t = {"echelonize_m4ri": entry_times(
+             "rank_rref_16384", lambda: m4.echelonize(A, full=True)),
+         "echelonize_pluq": entry_times(
+             "rank_rref_16384",
+             lambda: m4.echelonize(A, full=True, strategy="pluq"))}
+    emit("rank_rref_16384", ok=True, rank=r, launches={
+        "m4ri": launched, "pluq": launched_p}, ms=t)
+    return total
+
+
+def phase_invert_16384(seed: int) -> dict:
+    """The inverse of a product of random unit lower and upper factors:
+    A A^-1 == I by the float32 product, rank n; a singular 4096^2 gives a
+    rank below n."""
+    n = 16384
+    rng = np.random.default_rng(seed + 23)
+    full = unit_diagonal(packed(rng, n, n))
+    L = m4.from_packed(full, n)
+    U = m4.from_packed(unit_diagonal(packed(rng, n, n)), n)
+    A = m4.mul(m4.extract_l(L), m4.extract_u(U))
+    del full, L, U
+    (Ai, r), launched = driven(lambda: m4.invert(A))
+    check(r == n, f"invert 16384: rank {r}")
+    eye = m4.identity(n).data
+    check(torch.equal(f32_product(A.data, n, Ai.data, n), eye),
+          "invert 16384: A A^-1 is not the identity")
+    del Ai, eye
+    s = 4096
+    S = packed(rng, s, s)
+    S[5] = S[3]
+    (Si, rs), launched_s = driven(lambda: m4.invert(m4.from_packed(S, s)))
+    check(rs < s, f"invert: a singular {s}^2 gave rank {rs}")
+    total = {}
+    add_counts(total, launched)
+    add_counts(total, launched_s)
+    emit("invert_16384", ok=True, rank=r, singular_4096_rank=rs,
+         launches=launched, ms=entry_times("invert_16384", lambda: m4.invert(A)))
+    return total
+
+
+def phase_solve_32768_b256(seed: int) -> dict:
+    """A X = B with B = A X0 on a dense random 32768^2: consistent, and
+    A X == B by the float32 product; an inconsistent system at 4096 says so."""
+    n, bc = 32768, 256
+    rng = np.random.default_rng(seed + 24)
+    A = m4.from_packed(packed(rng, n, n), n)
+    X0 = packed(rng, n, bc)
+    B = m4.from_packed(f32_product(A.data, n, X0, bc), bc)
+    ((X, ok), launched) = driven(lambda: m4.solve_left(A, B))
+    check(bool(ok), "solve 32768: the consistent system was found inconsistent")
+    check(torch.equal(f32_product(A.data, n, X.data, bc), B.data),
+          "solve 32768: A X differs from B")
+    s, k = 4096, 2000
+    low = m4.from_packed(f32_product(packed(rng, s, k), k, packed(rng, k, s), s), s)
+    b1 = m4.from_packed(packed(rng, s, 1), 1)
+    ((_, ok1), launched_1) = driven(lambda: m4.solve_left(low, b1))
+    check(not bool(ok1), "solve 4096: a right-hand side outside the column "
+          "space of a rank-2000 matrix was found consistent")
+    total = {}
+    add_counts(total, launched)
+    add_counts(total, launched_1)
+    emit("solve_32768_b256", ok=True, launches=launched,
+         ms=entry_times("solve_32768_b256", lambda: m4.solve_left(A, B)))
+    return total
+
+
+def phase_kernel_left(seed: int) -> dict:
+    """The right kernel of a 4096^2 of rank about 3000: A X == 0, n - r
+    columns, and each free column's unit diagonal."""
+    n, k = 4096, 3000
+    rng = np.random.default_rng(seed + 25)
+    A = m4.from_packed(f32_product(packed(rng, n, k), k, packed(rng, k, n), n), n)
+    ((X, count), launched) = driven(lambda: m4.kernel_left(A))
+    r = m4.rank(A)
+    check(count == n - r, f"kernel_left: count {count}, rank {r}")
+    check(not bool(f32_product(A.data, n, X.data, n).any()),
+          "kernel_left: A X is not zero")
+    x = m4.to_numpy(X)
+    free = np.nonzero(x.any(axis=0))[0]
+    check(len(free) == count and all(x[j, j] == 1 for j in free),
+          "kernel_left: the free columns do not hold their unit diagonal")
+    emit("kernel_left_4096", ok=True, rank=r, count=count, launches=launched,
+         ms=time_host_ms(lambda: m4.kernel_left(A), runs=3))
+    return launched
+
+
+def phase_rref_golden() -> dict:
+    """The reference C library's RREF hash and rank of mzd_echelonize."""
+    recs = golden_records("rref", 8)
+    inputs = [golden_input(rec) for rec in recs]
+    zero_counts()
+    outs = [m4.echelonize(A, full=True) for A in inputs]
+    torch.cuda.synchronize()
+    got = counts()
+    for rec, (E, r) in zip(recs, outs):
+        what = f"golden rref {rec['kind']} {rec['m']}x{rec['n']}"
+        check(r == rec["rank"], f"{what}: rank {r}")
+        check(fnv1a_bits(m4.to_numpy(E)) == rec["out_hash"], f"{what}: out_hash")
+    emit("rref_golden", ok=True, records=len(recs), launches=got)
     return got
 
 
@@ -1042,7 +1386,11 @@ def main() -> int:
         for got in (phase_mul_4096(seed), phase_mul_routes(seed),
                     phase_strassen(seed), phase_ple_16384(seed),
                     phase_ple_deficient(seed), phase_ple_32768(seed),
-                    phase_golden_ple()):
+                    phase_golden_ple(), phase_pluq_32768(seed),
+                    phase_pluq_golden(), phase_trsm_32768(seed),
+                    phase_rank_rref_16384(seed), phase_invert_16384(seed),
+                    phase_solve_32768_b256(seed), phase_kernel_left(seed),
+                    phase_rref_golden()):
             add_counts(launches, got)
         phase_naive_and_golden(seed)
         for name, n in launches.items():

@@ -11,9 +11,11 @@ This package imports torch and numpy only.  Matrices are created on the
 card unless the caller passes ``device="cpu"``.  The CUDA kernels are
 compiled from ``csrc/`` at first use, never at import.
 
-Ported so far: the container, transpose, the multiply path (``mul`` /
-``addmul`` / squaring / ``mul_naive`` / Strassen) and the factorization path
-(``block_factor`` / ``ple`` / ``rank``).
+Ported so far: the container, transpose, the bit-field helpers, the
+multiply path (``mul`` / ``addmul`` / squaring / ``mul_naive`` / Strassen),
+the factorization path (``block_factor`` / ``ple`` / ``pluq`` / ``rank``),
+permutations, TRSM / TRTRI, the echelon forms and inversion, and
+``solve_left`` / ``pluq_solve_left`` / ``kernel_left``.
 """
 
 from .core.bitmatrix import (  # noqa: F401
@@ -21,10 +23,19 @@ from .core.bitmatrix import (  # noqa: F401
     randomize, randomize_reference, add, equal, is_zero, read_bit,
     write_bit, submatrix, stack, concat, row_swap, col_swap, density,
 )
-from .convert import from_reference, to_reference  # noqa: F401
+from .convert import (  # noqa: F401
+    factors_from_reference, factors_to_reference, from_reference,
+    to_reference,
+)
+from .core.bitops import (  # noqa: F401
+    and_bits, clear_bits, extract_l, extract_u, find_pivot, read_bits,
+    row_add, row_add_offset, set_ui, xor_bits,
+)
 from .core.transpose import transpose as _transpose
+from .models import echelon as _echelon, ple as _ple_mod, solve as _solve
+from .models import triangular as _triangular
 from .models.echelon import rank  # noqa: F401
-from .models.ple import block_factor, ple as _ple  # noqa: F401
+from .models.ple import block_factor  # noqa: F401
 from .ops.mul import mul as _mul, addmul as _addmul, mul_naive as _mul_naive
 from .utils.hashing import instrument as _dd_instrument
 
@@ -35,6 +46,32 @@ transpose = _dd_instrument("mzd_transpose", _transpose)
 mul = _dd_instrument("mzd_mul", _mul)
 addmul = _dd_instrument("mzd_addmul", _addmul)
 mul_naive = _dd_instrument("mzd_mul_naive", _mul_naive)
-ple = _dd_instrument("mzd_ple", _ple)
+
+# the factorizations and solvers under the JAX package's dd names
+ple = _dd_instrument("mzd_ple", _ple_mod.ple)
+pluq = _dd_instrument("mzd_pluq", _ple_mod.pluq)
+echelonize = _dd_instrument("mzd_echelonize", _echelon.echelonize)
+echelonize_pluq = _dd_instrument("mzd_echelonize_pluq",
+                                 _echelon.echelonize_pluq)
+top_echelonize = _dd_instrument("mzd_top_echelonize_m4ri",
+                                _echelon.top_echelonize)
+invert = _dd_instrument("mzd_inv_m4ri", _echelon.invert)
+invert_naive = _dd_instrument("mzd_invert_naive", _echelon.invert_naive)
+echelonize_naive = _dd_instrument("mzd_echelonize_naive",
+                                  _echelon.echelonize_naive)
+gauss_delayed = _dd_instrument("mzd_gauss_delayed", _echelon.gauss_delayed)
+trsm_lower_left = _dd_instrument("mzd_trsm_lower_left",
+                                 _triangular.trsm_lower_left)
+trsm_upper_left = _dd_instrument("mzd_trsm_upper_left",
+                                 _triangular.trsm_upper_left)
+trsm_lower_right = _dd_instrument("mzd_trsm_lower_right",
+                                  _triangular.trsm_lower_right)
+trsm_upper_right = _dd_instrument("mzd_trsm_upper_right",
+                                  _triangular.trsm_upper_right)
+trtri_upper = _dd_instrument("mzd_trtri_upper", _triangular.trtri_upper)
+trtri_lower = _dd_instrument("mzd_trtri_lower", _triangular.trtri_lower)
+solve_left = _dd_instrument("mzd_solve_left", _solve.solve_left)
+kernel_left = _dd_instrument("mzd_kernel_left_pluq", _solve.kernel_left)
+pluq_solve_left = _dd_instrument("mzd_pluq_solve_left", _solve.pluq_solve_left)
 
 __version__ = "0.1.0"

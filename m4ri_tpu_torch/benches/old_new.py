@@ -11,7 +11,7 @@ process, so that the card, its clocks and its power limit are the same for
 both.  Outputs are checked equal before anything is timed.  Timed: both
 GEMM wrappers at the shapes of ``split_launch.py`` (4096³, 8192×512×8192,
 the U rows at n=16384 and n=32768, the 8192³ quadrant views), ``mul`` at
-n=4096 and Strassen's ``mul`` at n=16384; both
+n=4096 and n=16384 (each tree's default route); both
 Schur entry points at the first and the middle panel of the sweeps at
 n=16384 (nb=512) and n=32768 (nb=1024), called as the sweep calls them (int
 bounds, finished column tiles skipped in each tree's own tiles), and

@@ -28,7 +28,8 @@ factorization with tensor-core Schur updates*:
 Where the JAX package scans with a traced rank, this sweep is a Python loop
 that reads ``[rank, miss]`` back from the device once a panel and slices with
 Python ints; it works in place on its own padded copy of the input, never on
-the caller's tensor.  ``pluq`` arrives with core/permutation.py.
+the caller's tensor.  ``pluq`` is ``ple`` followed by the triangular
+column permutation of core/permutation.py.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ import math
 import torch
 
 from ..core.bitmatrix import BitMatrix, mask_padding, width_for
+from ..core.permutation import apply_p_right_trans_tri
 from ..core.transpose import transpose
 from ..ops.hopper_mul import gf2_mul_hopper, gf2_mul_plain
 from ..ops.hopper_panel import panel_loop_hopper, panel_loop_plain
@@ -49,7 +51,7 @@ from ..ops.hopper_schur import (TILE_ROWS, TILE_WORDS,
 from ..ops.mul import exact_float32, pack_bits, unpack_bits
 from ..utils.config import WORD_BITS, get_config
 
-__all__ = ["ple", "block_factor"]
+__all__ = ["ple", "pluq", "block_factor"]
 
 ENGINES = ("hopper", "plain")
 
@@ -374,7 +376,20 @@ def ple(a: BitMatrix, nb: int | None = None):
 
     Returns (M, P, Q, rank): M holds L (unit lower, columns 0..r-1,
     compressed) and S=E in place exactly like the reference; P, Q are
-    LAPACK-style swap arrays (mzp_t format) as int32 tensors."""
+    LAPACK-style swap arrays (mzp_t format) as int32 tensors.
+
+    An empty matrix (0 x n, m x 0, 0 x 0) factors to rank 0, an empty body
+    and identity swap arrays.  Here the port differs from the JAX package,
+    whose ``ple`` raises ``TypeError`` on such shapes."""
     data, p, q, r = block_factor(a, preserve_l=True, nb=nb)
     data = _compress_l_impl(data, q, r, a.nrows, a.ncols)
     return mask_padding(BitMatrix(data, a.ncols)), p, q, r
+
+
+def pluq(a: BitMatrix, nb: int | None = None):
+    """PLUQ decomposition (reference API: mzd_pluq = _mzd_ple +
+    mzd_apply_p_right_trans_tri, ple.c:50-60): ``ple``'s result with the
+    pivot columns moved onto the diagonal of the triangular region, so the
+    body holds L strictly below the diagonal and U on and above it."""
+    m, p, q, r = ple(a, nb=nb)
+    return apply_p_right_trans_tri(m, q), p, q, r

@@ -24,7 +24,9 @@ WORD_BITS = 32  # words are int32 tensors; the reference uses 64 (misc.h:87).
 @dataclasses.dataclass(frozen=True)
 class Config:
     # NOTE: every gate and cutoff below starts at the value the JAX package
-    # uses so both packages route alike; none is yet measured on this card.
+    # uses so both packages route alike; on the card _derive() replaces the
+    # Strassen cutoffs with measured values, and trsm_wide_base was measured
+    # and kept (PERF.md); the others are not yet measured on this card.
     # Depth-block size of the blocked matmul path (reference analogue:
     # __M4RI_MUL_BLOCKSIZE, mzd.h:59).
     mul_block_k: int = 8192
@@ -66,6 +68,15 @@ class Config:
     # On the card, run the factorization through the hand-written kernels
     # (engine "hopper" of models/ple.py); off, the plain PyTorch engine.
     use_hopper_panel: bool = True
+    # TRSM / TRTRI recursion (models/triangular.py): blocks of at most
+    # trsm_base are inverted with the nilpotent series; a B at least a
+    # quarter as wide as T substitutes down to trsm_wide_base, then inverts
+    # the block and multiplies.
+    trsm_base: int = 512
+    trsm_wide_base: int = 4096
+    # Density from which echelonize(strategy="heuristic") takes the PLUQ
+    # path (reference: echelonform.h:37).
+    echelon_density_crossover: float = 0.15
     # Provenance of the derived values ("cuda:<name>", "cpu", "default").
     derived_from: str = "default"
 
@@ -78,6 +89,8 @@ def _env_overrides(cfg: Config) -> Config:
             continue
         if f.type in ("int", int):
             updates[f.name] = int(raw)
+        elif f.type in ("float", float):
+            updates[f.name] = float(raw)
         elif f.type in ("bool", bool):
             updates[f.name] = raw.lower() in ("1", "true", "yes", "on")
         else:
@@ -91,7 +104,12 @@ def _derive() -> Config:
     gates are off and the one-matmul products are smaller."""
     import torch
     if torch.cuda.is_available():
-        return Config(derived_from=f"cuda:{torch.cuda.get_device_name(0)}")
+        # Strassen measured on an H100 (benches/tune_cutoffs.py): the direct
+        # kernel product wins at 16384 and 32768, one level over 32768 bases
+        # wins at 65536, two levels lose there; so a level only where its
+        # base products stay at 32768 or more
+        return Config(strassen_cutoff=32768, strassen_depth3_min=262144,
+                      derived_from=f"cuda:{torch.cuda.get_device_name(0)}")
     return Config(use_hopper_schur=False, use_hopper_big=False,
                   use_hopper_panel=False, mul_block_k=4096, mul_block_m=4096,
                   mul_block_threshold=4096, strassen_cutoff=4096,

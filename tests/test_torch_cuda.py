@@ -502,3 +502,106 @@ def test_factorization_of_70000_rows_with_a_deficient_window(card):
     for g, w in zip(got[:3], want[:3]):
         assert torch.equal(g, w)
     assert got[3] == want[3]
+
+
+# ---- the solver API on the card, held to the port's result on the CPU ----
+
+def _both_devices(seed, rows, cols, card):
+    """The same random matrix on the card and on the host."""
+    import m4ri_tpu_torch as mt
+    a = _packed(seed, rows, cols, card)
+    return mt.from_packed(a, cols), mt.from_packed(a.cpu(), cols, device="cpu")
+
+
+def _same(got, want):
+    """Equal results of one entry point on the card and on the host: bit
+    matrices word for word, index arrays, ranks, flags."""
+    import m4ri_tpu_torch as mt
+    for g, w in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        if isinstance(g, mt.BitMatrix):
+            assert g.device.type == "cuda" and g.ncols == w.ncols
+            assert torch.equal(g.data.cpu(), w.data)
+        elif isinstance(g, torch.Tensor):
+            assert g.device.type == "cuda"
+            assert torch.equal(g.cpu(), w)
+        else:
+            assert g == w
+
+
+def _unit_diagonal(t):
+    n = t.shape[0]
+    idx = torch.arange(n, device=t.device)
+    t[idx, idx // 32] |= torch.ones_like(t[:, 0]) << (idx % 32).to(torch.int32)
+    return t
+
+
+@pytest.mark.parametrize("name", ["trsm_upper_left", "trsm_lower_left",
+                                  "trsm_upper_right", "trsm_lower_right"])
+@pytest.mark.parametrize("n,bcols", [(4096, 4096), (4096, 100), (2100, 2100)])
+def test_trsm_equals_the_cpu_port(card, name, n, bcols):
+    """Junk in the other triangle; a square B (wide-B substitution to the
+    wide base, then the kernel products) and a narrow one."""
+    import m4ri_tpu_torch as mt
+    t = _unit_diagonal(_packed(80, n, n, card))
+    T, Th = mt.from_packed(t, n), mt.from_packed(t.cpu(), n, device="cpu")
+    shape = (n, bcols) if name.endswith("left") else (bcols, n)
+    B, Bh = _both_devices(81, *shape, card)
+    fn = getattr(mt, name)
+    _same(fn(T, B), fn(Th, Bh))
+
+
+@pytest.mark.parametrize("upper", [True, False])
+def test_trtri_equals_the_cpu_port(card, upper):
+    import m4ri_tpu_torch as mt
+    t = _unit_diagonal(_packed(82, 3000, 3000, card))
+    fn = mt.trtri_upper if upper else mt.trtri_lower
+    _same(fn(mt.from_packed(t, 3000)),
+          fn(mt.from_packed(t.cpu(), 3000, device="cpu")))
+
+
+@pytest.mark.parametrize("m,n", [(2048, 2048), (1500, 2100), (2100, 1500)])
+def test_pluq_equals_the_cpu_port(card, m, n):
+    import m4ri_tpu_torch as mt
+    A, Ah = _both_devices(83, m, n, card)
+    _same(mt.pluq(A), mt.pluq(Ah))
+
+
+@pytest.mark.parametrize("strategy", ["m4ri", "pluq"])
+@pytest.mark.parametrize("full", [True, False])
+def test_echelonize_equals_the_cpu_port(card, strategy, full):
+    import m4ri_tpu_torch as mt
+    A, Ah = _both_devices(84, 2048, 2500, card)
+    _same(mt.echelonize(A, full=full, strategy=strategy),
+          mt.echelonize(Ah, full=full, strategy=strategy))
+
+
+def test_top_echelonize_equals_the_cpu_port(card):
+    import m4ri_tpu_torch as mt
+    A, Ah = _both_devices(85, 2048, 2048, card)
+    _same(mt.top_echelonize(A), mt.top_echelonize(Ah))
+
+
+def test_invert_equals_the_cpu_port(card):
+    import m4ri_tpu_torch as mt
+    A, Ah = _both_devices(86, 2048, 2048, card)
+    _same(mt.invert(A), mt.invert(Ah))
+
+
+@pytest.mark.parametrize("m,n,bcols", [(2048, 2048, 256), (2500, 2048, 40)])
+def test_solve_left_equals_the_cpu_port(card, m, n, bcols):
+    import m4ri_tpu_torch as mt
+    A, Ah = _both_devices(87, m, n, card)
+    B, Bh = _both_devices(88, m, bcols, card)
+    X, ok = mt.solve_left(A, B)
+    assert ok.device.type == "cuda" and ok.dtype == torch.bool
+    _same((X, ok), mt.solve_left(Ah, Bh))
+
+
+def test_kernel_left_equals_the_cpu_port(card):
+    import m4ri_tpu_torch as mt
+    lo = _packed(89, 2048, 1500, card)
+    hi = _packed(90, 1500, 2048, card)
+    A = mt.mul(mt.from_packed(lo, 1500), mt.from_packed(hi, 2048))
+    Ah = mt.from_packed(A.data.cpu(), 2048, device="cpu")
+    _same(mt.kernel_left(A), mt.kernel_left(Ah))

@@ -1,7 +1,8 @@
 """Golden vectors of the reference C library, through the PyTorch/CUDA port
-(mirrors test_golden.py's mul records): the glibc RNG stream copy must
-rebuild the inputs bit for bit and ``mul`` must hash to the library's
-product."""
+(mirrors test_golden.py's mul, pluq and rref records; the ple records are in
+test_torch_ple.py): the glibc RNG stream copy must rebuild the inputs bit
+for bit, ``mul`` must hash to the library's product, ``pluq`` must give its
+rank, P, Q and body, and ``echelonize`` its RREF."""
 
 import json
 import pathlib
@@ -45,3 +46,48 @@ def test_golden_input_stream(rec):
     """randomize_reference under srandom(17) rebuilds the library's inputs."""
     A = mt.randomize_reference(rec["m"], rec["n"], seed=17, device="cpu")
     assert fnv1a_bits(mt.to_numpy(A)) == rec["in_hash"]
+
+
+_PLUQ = [r for r in _RECS if r["op"] == "pluq"]
+_RREF = [r for r in _RECS if r["op"] == "rref"]
+
+
+def _golden_input(rec):
+    """The case input, drawn in the reference's order (test_golden.py)."""
+    if rec["k"]:
+        g = GlibcRandom(17)
+        b = reference_random_data(rec["m"], rec["k"], rng=g)
+        c = reference_random_data(rec["k"], rec["n"], rng=g)
+        return mt.mul(mt.from_reference(b, rec["k"], device="cpu"),
+                      mt.from_reference(c, rec["n"], device="cpu"))
+    return mt.randomize_reference(rec["m"], rec["n"], seed=17, device="cpu")
+
+
+def test_eight_pluq_and_eight_rref_records():
+    assert len(_PLUQ) == len(_RREF) == 8
+
+
+@pytest.mark.parametrize(
+    "rec", _PLUQ, ids=[f"{r['kind']}-{r['m']}x{r['n']}" for r in _PLUQ])
+def test_golden_pluq(rec):
+    """The reference C library's own rank, P, Q and L\\U body of mzd_pluq."""
+    A = _golden_input(rec)
+    assert fnv1a_bits(mt.to_numpy(A)) == rec["in_hash"], "RNG stream diverged"
+    M, P, Q, r = mt.pluq(A)
+    assert r == rec["rank"]
+    assert P.tolist() == rec["P"]
+    assert Q.tolist() == rec["Q"]
+    assert fnv1a_bits(mt.to_numpy(M)) == rec["out_hash"], "L\\U in-place body"
+
+
+@pytest.mark.parametrize(
+    "rec", _RREF, ids=[f"{r['kind']}-{r['m']}x{r['n']}" for r in _RREF])
+def test_golden_rref(rec):
+    """The reference C library's RREF hash and rank of mzd_echelonize
+    (the pluq strategy on the smaller records too)."""
+    A = _golden_input(rec)
+    assert fnv1a_bits(mt.to_numpy(A)) == rec["in_hash"], "RNG stream diverged"
+    for strategy in ("m4ri", "pluq")[: 1 if rec["m"] > 256 else 2]:
+        E, r = mt.echelonize(A, full=True, strategy=strategy)
+        assert r == rec["rank"]
+        assert fnv1a_bits(mt.to_numpy(E)) == rec["out_hash"], strategy

@@ -37,7 +37,9 @@ def test_the_walk_sees_the_port():
     assert {"bitmatrix.py", "mul.py", "strassen.py", "hopper_mul.py",
             "hopper_mul2.py", "_build.py", "chip_smoke.py", "hopper_schur.py",
             "hopper_panel.py", "hopper_post.py", "ple.py", "echelon.py",
-            "split_ple.py"} <= names
+            "split_ple.py", "graycode.py", "bitops.py", "permutation.py",
+            "triangular.py", "solve.py", "split_solve.py",
+            "tune_cutoffs.py"} <= names
 
 
 def test_every_kernel_source_has_a_wrapper_module():

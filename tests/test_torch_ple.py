@@ -214,6 +214,22 @@ def test_rank_of_edge_shapes():
     assert r == 1 and P.tolist() == [0] and Q.tolist() == [0]
 
 
+@pytest.mark.parametrize("m,n", [(0, 5), (5, 0), (0, 0)])
+def test_empty_matrices_factor_to_rank_zero(m, n):
+    """The port's behaviour on empty shapes, pinned: rank 0, an empty body
+    and identity swap arrays (the JAX package's ple raises TypeError here;
+    the docstring of ple says so)."""
+    A = mt.zeros(m, n, device="cpu")
+    M, P, Q, r = mt.ple(A)
+    assert r == 0 and M.shape == (m, n)
+    assert P.tolist() == list(range(m)) and Q.tolist() == list(range(n))
+    assert mt.rank(A) == 0
+    Mq, Pq, Qq, rq = mt.pluq(A)
+    assert rq == 0 and Mq.shape == (m, n)
+    assert torch.equal(Pq, P) and torch.equal(Qq, Q)
+    assert "TypeError" in tple.ple.__doc__
+
+
 _GOLDEN = [json.loads(l) for l in (pathlib.Path(__file__).parent / "data" /
                                    "golden_reference.jsonl").read_text().splitlines()]
 _GOLDEN_PLE = [r for r in _GOLDEN if r["op"] == "ple"]

@@ -18,8 +18,13 @@ TRSMs at 32768^2, RREF 16384^2 by both strategies, ``invert`` 16384^2,
 ``solve_left`` 32768^2 with 256 right-hand sides, ``kernel_left`` 4096^2 and
 the golden ``pluq`` / ``rref`` vectors, each held to a check that does not
 go through the code under test (the plain engine, a sequential oracle, a
-float32 product of the unpacked bits, or the C library's hash).  The
-launch counters show that the kernels ran.  One JSON object per phase; the
+float32 product of the unpacked bits, or the C library's hash); then the
+M4RI user surface: ``mul_m4rm`` at 4096^3 and 16384^3, ``djb_apply`` of a
+512^2 map to 65,536 vectors, npz / PNG / JCF round trips of 16384^2
+matrices through the card, the native C++ oracle at 2048, the reference
+C API program of tests/test_compat.py at 8192^2 plus every compat name that
+returns a matrix at 1024 (card against host), and ``mul`` at 65536^2 held by
+Freivalds' check.  The launch counters show that the kernels ran.  One JSON object per phase; the
 ``kernels`` line, the card's name and power limit, and last of all
 ``{"ok": true, "device": {...}}``.  Any mismatch, build failure or launch
 error ends the run with a non-zero exit code and without that last line.
@@ -34,6 +39,7 @@ import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -62,6 +68,7 @@ from m4ri_tpu_torch.ops.hopper_schur import (TILE_ROWS, TILE_WORDS,
                                              gf2_schur_update_plain)
 from m4ri_tpu_torch.utils import config as config_mod
 from m4ri_tpu_torch.utils.config import get_config
+from m4ri_tpu_torch.utils.graycode import opt_k
 from m4ri_tpu_torch.utils.rng import GlibcRandom, reference_random_data
 
 HERE = pathlib.Path(__file__).resolve().parent
@@ -1236,6 +1243,24 @@ def phase_trsm_32768(seed: int) -> dict:
     return total
 
 
+def same_rref(what: str, E, r: int, ut: torch.Tensor, piv: torch.Tensor):
+    """E is the RREF whose rows span those of U_top (``ut``, the r rows of a
+    REF of the plain engine, unpacked, pivots ``piv``): rows past the rank
+    zero, the pivot columns the identity, and U_rr E == U_top by a float32
+    product, TF32 off."""
+    ef = unpack_f32(E.data[:r], E.ncols)
+    check(not bool(E.data[r:].any()), f"{what}: rows past the rank not zero")
+    check(torch.equal(ef[:, piv], torch.eye(r, device=DEV)),
+          f"{what}: the pivot columns are not the identity")
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        prod = torch.fmod(ut[:, piv] @ ef, 2)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    check(torch.equal(prod, ut), f"{what}: U_rr E differs from U_top")
+
+
 def phase_rank_rref_16384(seed: int) -> dict:
     """RREF of a dense random 16384^2 by both strategies: equal to each
     other, rank(A) pivots, pivot columns the identity, and U_rr E == U_top
@@ -1254,20 +1279,8 @@ def phase_rank_rref_16384(seed: int) -> dict:
     check(torch.equal(E.data, Ep.data), "rref 16384: m4ri and pluq differ")
     data, _, q, r_plain = m4.block_factor(A, preserve_l=False, engine="plain")
     check(r_plain == r, f"rref 16384: the plain engine's rank is {r_plain}")
-    piv = q[:r].long()
-    ut = unpack_f32(data[:r], n)
-    ef = unpack_f32(E.data[:r], n)
-    check(not bool(E.data[r:].any()), "rref 16384: rows past the rank not zero")
-    check(torch.equal(ef[:, piv], torch.eye(r, device=DEV)),
-          "rref 16384: the pivot columns are not the identity")
-    saved = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        prod = torch.fmod(ut[:, piv] @ ef, 2)
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = saved
-    check(torch.equal(prod, ut), "rref 16384: U_rr E differs from U_top")
-    del data, ut, ef, prod, Ep
+    same_rref("rref 16384", E, r, unpack_f32(data[:r], n), q[:r].long())
+    del data, Ep
     t = {"echelonize_m4ri": entry_times(
              "rank_rref_16384", lambda: m4.echelonize(A, full=True)),
          "echelonize_pluq": entry_times(
@@ -1370,6 +1383,431 @@ def phase_rref_golden() -> dict:
     return got
 
 
+# ------------------------------------------------ the M4RI user surface ---
+
+def on_card(what: str, *items) -> None:
+    """Every matrix (or tensor) a phase got back lies on the card."""
+    for x in items:
+        t = x.data if isinstance(x, BitMatrix) else x
+        check(isinstance(t, torch.Tensor) and t.is_cuda,
+              f"{what}: a result is not on the card")
+
+
+def freivalds(A, B, C, n: int, seed: int, cols: int = 64) -> None:
+    """C == A B on 64 random columns X: C X == A (B X), each product a
+    float32 product of the unpacked bits in 4096-row blocks, TF32 off."""
+    X = packed(np.random.default_rng(seed), n, cols)
+    lhs = f32_product(C.data, n, X, cols)
+    rhs = f32_product(A.data, n, f32_product(B.data, n, X, cols), cols)
+    check(torch.equal(lhs, rhs), f"Freivalds: C X != A (B X) at n={n}")
+
+
+def phase_m4rm_4096(seed: int) -> dict:
+    """mul_m4rm 4096^3 with the table width it picks (9) and with k = 8,
+    and addmul_m4rm on a random C: word for word the GEMM kernel's product
+    and the float32 product."""
+    n = 4096
+    rng = np.random.default_rng(seed + 30)
+    A, B, C = (m4.from_packed(packed(rng, n, n), n) for _ in range(3))
+    k = min(opt_k(n, n, n), 12)
+    got, launched = driven(lambda: m4.mul_m4rm(A, B))
+    got8 = m4.mul_m4rm(A, B, 8)
+    got_add = m4.addmul_m4rm(C, A, B)
+    on_card("m4rm 4096", got, got8, got_add)
+    zero_counts()
+    want = m4.mul(A, B)
+    torch.cuda.synchronize()
+    check(gemm_counts()["gf2_mul_hopper_v2"] == 1, "mul 4096 took no kernel")
+    check(torch.equal(want.data, f32_product(A.data, n, B.data, n)),
+          "mul 4096 differs from the float32 product")
+    for what, x in ((f"k={k}", got), ("k=8", got8)):
+        check(torch.equal(x.data, want.data), f"mul_m4rm 4096 ({what}) differs")
+    check(torch.equal(got_add.data, C.data ^ want.data),
+          "addmul_m4rm 4096 differs")
+    emit("m4rm_4096", ok=True, n=n, k=k, launches=launched,
+         ms={"mul_m4rm": time_ms(lambda: m4.mul_m4rm(A, B), runs=5, warmup=1),
+             "mul_m4rm_k8": time_ms(lambda: m4.mul_m4rm(A, B, 8), runs=5,
+                                    warmup=1),
+             "addmul_m4rm": time_ms(lambda: m4.addmul_m4rm(C, A, B), runs=5,
+                                    warmup=1),
+             "mul": time_ms(lambda: m4.mul(A, B))}, **bound(n, n, n))
+    return launched
+
+
+def phase_m4rm_16384(seed: int) -> dict:
+    """mul_m4rm 16384^3 (k = 11): word for word the GEMM kernel's product,
+    and Freivalds by the float32 product."""
+    n = 16384
+    rng = np.random.default_rng(seed + 31)
+    A, B = (m4.from_packed(packed(rng, n, n), n) for _ in range(2))
+    k = min(opt_k(n, n, n), 12)
+    got, launched = driven(lambda: m4.mul_m4rm(A, B))
+    on_card("m4rm 16384", got)
+    check(torch.equal(got.data, m4.mul(A, B).data),
+          "mul_m4rm 16384 differs from mul")
+    freivalds(A, B, got, n, seed + 32)
+    del got
+    emit("m4rm_16384", ok=True, n=n, k=k, launches=launched,
+         ms={"mul_m4rm": time_host_ms(lambda: m4.mul_m4rm(A, B), runs=2),
+             "mul": time_ms(lambda: m4.mul(A, B), runs=5, warmup=1)},
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+         **bound(n, n, n))
+    return launched
+
+
+def phase_djb_512(seed: int) -> dict:
+    """The XOR program of a dense random 512^2 (compiled on the host), then
+    applied on the card to 65,536 input vectors, the columns of a
+    512 x 65536 V: word for word mul(A, V) and the float32 product."""
+    n, cols = 512, 65536
+    rng = np.random.default_rng(seed + 33)
+    A = m4.from_packed(packed(rng, n, n), n)
+    V = m4.from_packed(packed(rng, n, cols), cols)
+    t0 = time.perf_counter()
+    prog = m4.djb_compile(A)
+    compile_ms = (time.perf_counter() - t0) * 1e3
+    W, launched = driven(lambda: m4.djb_apply(prog, V))
+    on_card("djb_apply", W)
+    check(torch.equal(W.data, f32_product(A.data, n, V.data, cols)),
+          "djb_apply differs from the float32 product")
+    check(torch.equal(W.data, m4.mul(A, V).data), "djb_apply differs from mul")
+    emit("djb_512", ok=True, n=n, vectors=cols, program_length=prog.length,
+         launches=launched, compile_host_ms=compile_ms,
+         ms={"djb_apply": time_host_ms(lambda: m4.djb_apply(prog, V), runs=2,
+                                       warmup=0),
+             "mul": time_ms(lambda: m4.mul(A, V), runs=5, warmup=1)})
+    return launched
+
+
+def png_header(path: str) -> tuple:
+    """(width, height, bit depth, colour type) of a PNG, parsed by hand:
+    the signature, then the IHDR chunk's length, tag and fields."""
+    with open(path, "rb") as fh:
+        head = fh.read(26)
+    check(head[:8] == b"\x89PNG\r\n\x1a\n", f"{path}: no PNG signature")
+    check(int.from_bytes(head[8:12], "big") == 13 and head[12:16] == b"IHDR",
+          f"{path}: the first chunk is not a 13-byte IHDR")
+    return (int.from_bytes(head[16:20], "big"),
+            int.from_bytes(head[20:24], "big"), head[24], head[25])
+
+
+def phase_io_16384(seed: int) -> dict:
+    """npz and PNG round trips of a dense random 16384^2 from the card, JCF
+    of a sparse 16384^2 (density 2^-10), and info with the rank; each file
+    read back onto the card with equal words.  The files go to a temporary
+    directory under the checkout's build directory."""
+    from m4ri_tpu_torch.utils import io
+    n = 16384
+    rng = np.random.default_rng(seed + 34)
+    A = m4.from_packed(packed(rng, n, n), n)
+    pos = np.unique(rng.integers(0, n * n, n * n >> 10))
+    dense_s = np.zeros((n, n), np.uint8)
+    dense_s.reshape(-1)[pos] = 1
+    S = m4.from_numpy(dense_s)
+    del dense_s
+    ms, sizes = {}, {}
+    build = HERE / "m4ri_tpu_torch" / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        for fmt, M, write, read in (
+                ("npz", A, io.save_npz, io.load_npz),
+                ("png", A, io.write_png, io.read_png),
+                ("jcf", S, io.to_jcf, io.from_jcf)):
+            path = os.path.join(tmp, f"m.{fmt}")
+            t0 = time.perf_counter()
+            write(M, path)
+            t1 = time.perf_counter()
+            back = read(path)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            on_card(f"read {fmt}", back)
+            check(back.ncols == M.ncols and torch.equal(back.data, M.data),
+                  f"{fmt} round trip of a 16384^2 changed the words")
+            ms[fmt] = {"write": (t1 - t0) * 1e3, "read": (t2 - t1) * 1e3}
+            sizes[fmt] = os.path.getsize(path)
+            if fmt == "png":
+                head = png_header(path)
+                check(head == (n, n, 1, 0), f"PNG header {head}")
+            del back
+    t0 = time.perf_counter()
+    text = io.info(A, compute_rank=True)
+    ms["info_rank"] = (time.perf_counter() - t0) * 1e3
+    r = m4.rank(A)
+    check(text.startswith(f"{n} x {n} matrix") and text.endswith(f", rank {r}"),
+          f"info says {text!r}, rank {r}")
+    emit("io_16384", ok=True, n=n, sparse_ones=len(pos), ms=ms,
+         file_bytes=sizes, info=text)
+    return {}
+
+
+def phase_native_2048(seed: int) -> dict:
+    """The native C++ oracle, built with g++: its naive product and full
+    echelon form of 2048^2 word for word the port's on the card, its glibc
+    stream the port's."""
+    from m4ri_tpu_torch.native import build as native
+    n = 2048
+    t0 = time.perf_counter()
+    lib = native.load()
+    build_s = time.perf_counter() - t0
+    check(lib is not None, "the native gf2core library did not build with g++")
+    rng = np.random.default_rng(seed + 35)
+    A, B = (m4.from_packed(packed(rng, n, n), n) for _ in range(2))
+    a_np, b_np = (x.data.cpu().numpy() for x in (A, B))
+    t0 = time.perf_counter()
+    c = native.native_mul(a_np, b_np, n, n)
+    t1 = time.perf_counter()
+    e, r = native.native_echelonize(a_np, n, full=True)
+    t2 = time.perf_counter()
+    (C, (E, rE)), launched = driven(lambda: (m4.mul(A, B),
+                                             m4.echelonize(A, full=True)))
+    on_card("native_2048", C, E)
+    check(torch.equal(C.data, m4.from_packed(c, n).data),
+          "mul 2048 differs from the native product")
+    check(r == rE, f"native rank {r}, the port's {rE}")
+    check(torch.equal(E.data, m4.from_packed(e, n).data),
+          "echelonize 2048 differs from the native echelon form")
+    d = native.native_randomize(n, n, seed=17)
+    check(np.array_equal(d, reference_random_data(n, n, seed=17)),
+          "native_randomize differs from the glibc stream of utils/rng.py")
+    R = m4.randomize_reference(n, n, seed=17)
+    on_card("randomize_reference", R)
+    check(torch.equal(R.data, m4.from_packed(d, n).data),
+          "randomize_reference differs from native_randomize")
+    emit("native_2048", ok=True, n=n, rank=r, build_s=build_s,
+         native_ms={"mul": (t1 - t0) * 1e3, "echelonize": (t2 - t1) * 1e3},
+         launches=launched)
+    return launched
+
+
+# (compat name, its arguments from a dict of inputs) for every compat name
+# that returns a matrix, called once at 1024 on the card and on a host copy
+COMPAT_SWEEP = [
+    ("mzd_copy", lambda g: (None, g["A"])),
+    ("mzd_transpose", lambda g: (None, g["A"])),
+    ("mzd_stack", lambda g: (None, g["A"], g["B"])),
+    ("mzd_concat", lambda g: (None, g["A"], g["B"])),
+    ("mzd_submatrix", lambda g: (None, g["A"], 3, 5, 1000, 1019)),
+    ("mzd_init_window", lambda g: (g["A"], 1, 33, 1024, 1000)),
+    ("mzd_init_window_const", lambda g: (g["A"], 0, 0, 512, 512)),
+    ("mzd_set_ui", lambda g: (g["A"], 1)),
+    ("mzd_randomize_custom", lambda g: (g["A"], GlibcRandom(5).random_word)),
+    ("mzd_write_bit", lambda g: (g["A"], 3, 31, 1)),
+    ("mzd_xor_bits", lambda g: (g["A"], 7, 100, 64, 0xFEDCBA9876543210)),
+    ("mzd_and_bits", lambda g: (g["A"], 8, 31, 40, 0x80000000FF)),
+    ("mzd_clear_bits", lambda g: (g["A"], 9, 63, 64)),
+    ("mzd_row_swap", lambda g: (g["A"], 0, 1023)),
+    ("mzd_col_swap", lambda g: (g["A"], 0, 1023)),
+    ("mzd_col_swap_in_rows", lambda g: (g["A"], 5, 900, 100, 700)),
+    ("mzd_row_add", lambda g: (g["A"], 4, 9)),
+    ("mzd_row_add_offset", lambda g: (g["A"], 9, 4, 77)),
+    ("mzd_extract_u", lambda g: (None, g["A"])),
+    ("mzd_extract_l", lambda g: (None, g["A"])),
+    ("mzd_add", lambda g: (None, g["A"], g["B"])),
+    ("mzd_sub", lambda g: (g["A"], g["B"])),
+    ("mzd_mul", lambda g: (None, g["A"], g["B"], 0)),
+    ("mzd_addmul", lambda g: (g["C"], g["A"], g["B"], 0)),
+    ("mzd_mul_naive", lambda g: (None, g["A"], g["X"])),
+    ("mzd_addmul_naive", lambda g: (g["Y"], g["A"], g["X"])),
+    ("mzd_mul_m4rm", lambda g: (None, g["A"], g["B"], 0)),
+    ("mzd_addmul_m4rm", lambda g: (g["C"], g["A"], g["B"], 0)),
+    ("mzd_mul_va", lambda g: (g["v"], g["v"], g["A"], False)),
+    ("mzd_echelonize", lambda g: (g["A"], True)),
+    ("mzd_echelonize_m4ri", lambda g: (g["A"], False)),
+    ("mzd_echelonize_pluq", lambda g: (g["A"], True)),
+    ("mzd_echelonize_naive", lambda g: (g["A"], True)),
+    ("mzd_gauss_delayed", lambda g: (g["A"], 100, False)),
+    ("mzd_top_echelonize_m4ri", lambda g: (g["A"], 0)),
+    ("mzd_ple", lambda g: (g["A"],)),
+    ("mzd_pluq", lambda g: (g["A"],)),
+    ("mzd_inv_m4ri", lambda g: (None, g["U"], 0)),
+    ("mzd_invert_naive", lambda g: (None, g["U"])),
+    ("mzd_solve_left", lambda g: (g["A"], g["X"])),
+    ("mzd_pluq_solve_left", lambda g: (g["pluq"][0], g["pluq"][3],
+                                       g["pluq"][1], g["pluq"][2], g["X"])),
+    ("mzd_kernel_left_pluq", lambda g: (g["A"],)),
+    ("mzd_trsm_upper_left", lambda g: (g["U"], g["X"])),
+    ("mzd_trsm_lower_left", lambda g: (g["L"], g["X"])),
+    ("mzd_trsm_upper_right", lambda g: (g["U"], g["XT"])),
+    ("mzd_trsm_lower_right", lambda g: (g["L"], g["XT"])),
+    ("mzd_trtri_upper", lambda g: (g["U"],)),
+    ("mzd_trtri_upper_russian", lambda g: (g["U"],)),
+    ("mzd_apply_p_left", lambda g: (g["A"], g["p"])),
+    ("mzd_apply_p_left_trans", lambda g: (g["A"], g["p"])),
+    ("mzd_apply_p_right", lambda g: (g["A"], g["p"])),
+    ("mzd_apply_p_right_trans", lambda g: (g["A"], g["p"])),
+    ("mzd_apply_p_right_trans_tri", lambda g: (g["A"], g["pluq"][2])),
+    ("mzd_apply_p_right_even_capped", lambda g: (g["A"], g["p"], 300, 0)),
+    ("mzd_apply_p_right_trans_even_capped", lambda g: (g["A"], g["p"], 700, 0)),
+    ("mzd_copy_row", lambda g: (g["A"], 5, g["B"], 6)),
+    ("mzd_row_clear_offset", lambda g: (g["A"], 5, 300)),
+    ("mzd_combine", lambda g: (g["A"], 3, 0, g["A"], 1, 0, g["B"], 2, 0)),
+    ("mzd_combine_even", lambda g: (g["A"], 3, 4, g["B"], 1, 4, g["C"], 2, 4)),
+    ("mzd_combine_even_in_place", lambda g: (g["A"], 0, 1, g["B"], 7, 1)),
+    ("mzd_make_table", lambda g: (g["A"], 0, 0, 8)),
+    ("mzd_process_rows", lambda g: (g["A"], 8, 1024, 0, 8, *g["table"])),
+    ("mzd_process_rows2", lambda g: (g["A"], 16, 1024, 0, 8, *g["table"] * 2)),
+    ("mzd_process_rows3", lambda g: (g["A"], 24, 1024, 0, 8, *g["table"] * 3)),
+    ("mzd_process_rows4", lambda g: (g["A"], 32, 1024, 0, 8, *g["table"] * 4)),
+    ("mzd_process_rows5", lambda g: (g["A"], 40, 1024, 0, 8, *g["table"] * 5)),
+    ("mzd_process_rows6", lambda g: (g["A"], 48, 1024, 0, 8, *g["table"] * 6)),
+    ("djb_apply", lambda g: (g["prog"], g["W"])),
+    ("djb_apply_mzd", lambda g: (g["prog"], None, g["W"])),
+]
+
+
+def compat_inputs(rng, n: int) -> tuple[dict, dict]:
+    """The sweep's inputs on the card, and the same on the host."""
+    from m4ri_tpu_torch import compat
+    words = {"A": packed(rng, n, n), "B": packed(rng, n, n),
+             "C": packed(rng, n, n), "X": packed(rng, n, 256),
+             "Y": packed(rng, n, 256), "XT": packed(rng, 256, n),
+             "v": packed(rng, 1, n), "W": packed(rng, 128, 4096)}
+    ncols = {"X": 256, "Y": 256, "W": 4096}
+    up = unit_diagonal(packed(rng, n, n))
+    p = torch.from_numpy(rng.integers(np.arange(n), n).astype(np.int32))
+    prog = m4.djb_compile(m4.from_packed(packed(rng, 128, 128), 128))
+    sides = []
+    for dev in (DEV, torch.device("cpu")):
+        g = {k: m4.from_packed(w.to(dev), ncols.get(k, n), device=dev)
+             for k, w in words.items()}
+        U = m4.extract_u(m4.from_packed(up.to(dev), n, device=dev))
+        g.update(U=U, L=m4.transpose(U), p=p.to(dev), prog=prog,
+                 pluq=compat.mzd_pluq(g["A"]),
+                 table=compat.mzd_make_table(g["A"], 0, 0, 8))
+        sides.append(g)
+    return sides[0], sides[1]
+
+
+def same_on_card_and_host(what: str, got, want) -> None:
+    """A result on the card equals the host's, item for item."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    check(len(got) == len(want), f"{what}: {len(got)} results, {len(want)} on the host")
+    for g, w in zip(got, want):
+        if isinstance(g, (BitMatrix, torch.Tensor)):
+            on_card(what, g)
+            gd, wd = (x.data if isinstance(x, BitMatrix) else x for x in (g, w))
+            check(getattr(g, "ncols", 0) == getattr(w, "ncols", 0)
+                  and torch.equal(gd.cpu(), wd), f"{what}: card and host differ")
+        else:
+            check(g == w, f"{what}: {g} on the card, {w} on the host")
+
+
+def phase_compat_program(seed: int) -> dict:
+    """tests/test_compat.py::test_reference_style_program at 8192^2 through
+    the compat names, held to the port's own entry points word for word
+    and to checks outside them: the glibc stream to the native library,
+    the products by Freivalds, the echelon form and the PLE factors to the
+    plain engine, the solve and the inverse to the float32 product; then
+    every compat name that returns a matrix once at 1024, on the card and
+    on a host copy.  Only the compat calls are counted."""
+    from m4ri_tpu_torch import compat as c
+    from m4ri_tpu_torch.native import build as native
+    n = 8192
+    ms, launched = {}, {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        add_counts(launched, counts())
+        return out
+
+    c.m4ri_srandom(17)
+    A = timed("mzd_randomize", lambda: c.mzd_randomize(c.mzd_init(n, n)))
+    B = timed("mzd_randomize_b", lambda: c.mzd_randomize(c.mzd_init(n, n)))
+    C = timed("mzd_mul", lambda: c.mzd_mul(None, A, B, 0))
+    C3 = timed("mzd_mul_m4rm", lambda: c.mzd_mul_m4rm(None, A, B, 0))
+    E, r = timed("mzd_echelonize",
+                 lambda: c.mzd_echelonize(c.mzd_copy(None, A), full=True))
+    M, P, Q, rr = timed("mzd_ple", lambda: c.mzd_ple(c.mzd_copy(None, A)))
+    X, ok = timed("mzd_solve_left", lambda: c.mzd_solve_left(A, C, 0, 1))
+    U = m4.extract_u(m4.from_packed(
+        unit_diagonal(packed(np.random.default_rng(seed + 36), n, n)), n))
+    T = m4.mul(m4.transpose(U), U)
+    inv = timed("mzd_inv_m4ri", lambda: c.mzd_inv_m4ri(None, T, 0))
+    on_card("compat program", A, B, C, C3, E, M, P, Q, X, ok, inv)
+    stream = native.native_randomize(2 * n, n, seed=17)
+    check(stream is not None and torch.equal(
+        torch.cat([A.data, B.data]), m4.from_packed(stream, n).data),
+        "mzd_randomize after m4ri_srandom(17) is not the glibc stream")
+    check(torch.equal(C.data, m4.mul(A, B).data), "mzd_mul differs from mul")
+    check(torch.equal(C3.data, C.data), "mzd_mul_m4rm differs from mzd_mul")
+    freivalds(A, B, C, n, seed + 40)
+    E2, r2 = m4.echelonize(A, full=True, strategy="heuristic")
+    check(r == r2 == m4.rank(A) and torch.equal(E.data, E2.data),
+          "mzd_echelonize differs from echelonize")
+    want = m4.ple(A)
+    check(rr == r and torch.equal(M.data, want[0].data)
+          and torch.equal(P, want[1]) and torch.equal(Q, want[2]),
+          "mzd_ple differs from ple")
+    # the plain engine's factors with L kept: its REF rows are those rows
+    # with L (below the diagonal of the pivot columns) cleared
+    data, Pp, Qp, r_plain = m4.block_factor(A, preserve_l=True, engine="plain")
+    check(r_plain == r, f"compat 8192: the plain engine's rank is {r_plain}")
+    check(torch.equal(P, Pp) and torch.equal(Q, Qp),
+          "mzd_ple: P or Q differs from the plain engine")
+    check(valid_swaps(P, Q, r, n, n), "mzd_ple: P, Q are not swap arrays")
+    plain_m = mask_padding(BitMatrix(
+        ple_mod._compress_l_impl(data, Qp, r_plain, n, n), n))
+    check(torch.equal(M.data, plain_m.data),
+          "mzd_ple: the compressed body differs from the plain engine's")
+    piv = Qp[:r].long()
+    ut = unpack_f32(data[:r], n)
+    ut[:, piv] = ut[:, piv].triu()
+    same_rref("mzd_echelonize 8192", E, r, ut, piv)
+    del data, plain_m, ut
+    check(bool(ok), "mzd_solve_left: A X = A B was found inconsistent")
+    check(torch.equal(f32_product(A.data, n, X.data, n), C.data),
+          "mzd_solve_left: A X differs from C")
+    check(torch.equal(f32_product(T.data, n, inv.data, n), m4.identity(n).data),
+          "mzd_inv_m4ri: T T^-1 is not the identity")
+    del A, B, C, C3, E, E2, M, P, Q, X, U, T, inv, want
+    t0 = time.perf_counter()
+    card, host = compat_inputs(np.random.default_rng(seed + 37), 1024)
+    for name, args in COMPAT_SWEEP:
+        same_on_card_and_host(name, getattr(c, name)(*args(card)),
+                              getattr(c, name)(*args(host)))
+    c.m4ri_srandom(5)
+    R = c.mzd_randomize(card["A"])
+    c.m4ri_srandom(5)
+    same_on_card_and_host("mzd_randomize", R, c.mzd_randomize(host["A"]))
+    for name, args in (("mzd_init", (300, 1000)), ("mzp_init", (1000,)),
+                       ("mzd_from_str", (2, 3, "101010"))):
+        on_card(name, getattr(c, name)(*args))
+    emit("compat_program", ok=True, n=n, rank=r, launches=launched, ms=ms,
+         sweep_names=len(COMPAT_SWEEP) + 4, sweep_n=1024,
+         sweep_s=time.perf_counter() - t0)
+    return launched
+
+
+def phase_mul_65536(seed: int) -> dict:
+    """mul of two dense random 65536^2 (one Strassen level over 32768
+    bases, the card's default): Freivalds on 64 random columns by the
+    float32 product in 4096-row blocks, TF32 off (exact: 65536 < 2^24
+    terms)."""
+    n = 65536
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed + 38)
+    A, B = (m4.randomize(n, n, gen) for _ in range(2))
+    C, launched = driven(lambda: m4.mul(A, B))
+    on_card("mul 65536", C)
+    check(launched["gf2_mul_hopper_v2"] == 7,
+          f"mul 65536 launched {launched}, want one Strassen level of 7")
+    freivalds(A, B, C, n, seed + 39)
+    del C
+    t = time_ms(lambda: m4.mul(A, B), runs=5, warmup=1)
+    emit("mul_65536", ok=True, n=n, launches=launched, ms=t,
+         tbitops_per_s=2 * n**3 / t["median"] / 1e9,
+         strassen_cutoff=get_config().strassen_cutoff,
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+         **bound(n, n, n))
+    return launched
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=17)
@@ -1392,6 +1830,14 @@ def main() -> int:
                     phase_solve_32768_b256(seed), phase_kernel_left(seed),
                     phase_rref_golden()):
             add_counts(launches, got)
+        surface = {}
+        for phase in (phase_m4rm_4096, phase_m4rm_16384, phase_djb_512,
+                      phase_io_16384, phase_native_2048, phase_compat_program,
+                      phase_mul_65536):
+            t = time.time()
+            add_counts(launches, phase(seed))
+            surface[phase.__name__.removeprefix("phase_")] = time.time() - t
+        emit("user_surface", seconds=surface, total_seconds=sum(surface.values()))
         phase_naive_and_golden(seed)
         for name, n in launches.items():
             check(n > 0, f"the main path never launched {name}")

@@ -14,8 +14,12 @@ compiled from ``csrc/`` at first use, never at import.
 Ported so far: the container, transpose, the bit-field helpers, the
 multiply path (``mul`` / ``addmul`` / squaring / ``mul_naive`` / Strassen),
 the factorization path (``block_factor`` / ``ple`` / ``pluq`` / ``rank``),
-permutations, TRSM / TRTRI, the echelon forms and inversion, and
-``solve_left`` / ``pluq_solve_left`` / ``kernel_left``.
+permutations, TRSM / TRTRI, the echelon forms and inversion,
+``solve_left`` / ``pluq_solve_left`` / ``kernel_left``, the Gray-table
+product (``mul_m4rm`` / ``addmul_m4rm``), DJB linear maps (``djb_compile`` /
+``djb_apply``), matrix I/O (``utils/io.py``), the native C++ oracle
+(``native/``) and the reference C API by name (``compat``).  Still to port:
+``parallel/`` (the multi-device products and factorizations).
 """
 
 from .core.bitmatrix import (  # noqa: F401
@@ -35,7 +39,9 @@ from .core.transpose import transpose as _transpose
 from .models import echelon as _echelon, ple as _ple_mod, solve as _solve
 from .models import triangular as _triangular
 from .models.echelon import rank  # noqa: F401
+from .models.djb import djb_apply, djb_compile  # noqa: F401
 from .models.ple import block_factor  # noqa: F401
+from .ops import m4rm as _m4rm
 from .ops.mul import mul as _mul, addmul as _addmul, mul_naive as _mul_naive
 from .utils.hashing import instrument as _dd_instrument
 
@@ -73,5 +79,7 @@ trtri_lower = _dd_instrument("mzd_trtri_lower", _triangular.trtri_lower)
 solve_left = _dd_instrument("mzd_solve_left", _solve.solve_left)
 kernel_left = _dd_instrument("mzd_kernel_left_pluq", _solve.kernel_left)
 pluq_solve_left = _dd_instrument("mzd_pluq_solve_left", _solve.pluq_solve_left)
+mul_m4rm = _dd_instrument("mzd_mul_m4rm", _m4rm.mul_m4rm)
+addmul_m4rm = _dd_instrument("mzd_addmul_m4rm", _m4rm.addmul_m4rm)
 
 __version__ = "0.1.0"

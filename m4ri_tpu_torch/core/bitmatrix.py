@@ -32,7 +32,7 @@ __all__ = [
     "randomize_reference", "add", "equal", "is_zero", "read_bit",
     "write_bit", "submatrix", "stack", "concat", "row_swap", "col_swap",
     "mask_padding", "density", "shift_columns_left", "shift_columns_right",
-    "randomize_custom", "resolve_device", "popcount32",
+    "randomize_custom", "resolve_device", "popcount32", "xor_reduce",
 ]
 
 
@@ -298,6 +298,23 @@ def popcount32(x: torch.Tensor) -> torch.Tensor:
     x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
     x = (x + ((x >> 4) & 0x0F0F0F0F)) & 0x0F0F0F0F
     return ((x * 0x01010101) >> 24) & 0xFF
+
+
+def xor_reduce(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """XOR of all entries along ``dim`` (torch has no such reduction): fold
+    the axis in halves, an odd last slice XORed into the first."""
+    while x.shape[dim] > 1:
+        n = x.shape[dim]
+        half = n // 2
+        y = x.narrow(dim, 0, half) ^ x.narrow(dim, half, half)
+        if n % 2:
+            y.narrow(dim, 0, 1).bitwise_xor_(x.narrow(dim, n - 1, 1))
+        x = y
+    if x.shape[dim] == 0:
+        shape = list(x.shape)
+        del shape[dim]
+        return torch.zeros(shape, dtype=x.dtype, device=x.device)
+    return x.squeeze(dim)
 
 
 def density(m: BitMatrix) -> torch.Tensor:

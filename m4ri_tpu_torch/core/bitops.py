@@ -151,7 +151,7 @@ def find_pivot(m: BitMatrix, start_row: int, start_col: int):
     anyc = bits.amax(dim=0)
     j = torch.argmax(anyc)
     i = torch.argmax(bits[:, j])
-    return anyc.any(), i.to(torch.int32), j.to(torch.int32)
+    return (anyc != 0).any(), i.to(torch.int32), j.to(torch.int32)
 
 
 def set_ui(m: BitMatrix, value: int) -> BitMatrix:

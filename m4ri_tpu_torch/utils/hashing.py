@@ -16,7 +16,7 @@ import functools
 
 import torch
 
-from ..core.bitmatrix import BitMatrix
+from ..core.bitmatrix import BitMatrix, xor_reduce
 
 _ENABLED = False
 _U32 = 0xFFFFFFFF
@@ -25,19 +25,6 @@ _U32 = 0xFFFFFFFF
 def debug_dump(enable: bool = True) -> None:
     global _ENABLED
     _ENABLED = enable
-
-
-def _xor_reduce(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """XOR of all entries along ``dim`` (torch has no such reduction):
-    fold the axis in halves, zero-padding odd lengths."""
-    x = x.movedim(dim, -1)
-    while x.shape[-1] > 1:
-        if x.shape[-1] % 2:
-            x = torch.nn.functional.pad(x, (0, 1))
-        half = x.shape[-1] // 2
-        x = x[..., :half] ^ x[..., half:]
-    return x[..., 0] if x.shape[-1] else torch.zeros(
-        x.shape[:-1], dtype=x.dtype, device=x.device)
 
 
 def matrix_hash(a: BitMatrix) -> torch.Tensor:
@@ -49,10 +36,10 @@ def matrix_hash(a: BitMatrix) -> torch.Tensor:
     dev = data.device
     widx = torch.arange(width, dtype=torch.int64, device=dev)
     words = ((data * 16777619) & _U32) ^ ((widx[None, :] * 0x9E3779B9) & _U32)
-    rowh = _xor_reduce(words, 1) ^ 2166136261
+    rowh = xor_reduce(words, 1) ^ 2166136261
     rot = torch.arange(nrows, dtype=torch.int64, device=dev) % 32
     rolled = ((rowh << rot) | (rowh >> ((32 - rot) % 32))) & _U32
-    return _xor_reduce(rolled, 0) ^ a.ncols
+    return xor_reduce(rolled, 0) ^ a.ncols
 
 
 def dd(name: str, a: BitMatrix) -> None:

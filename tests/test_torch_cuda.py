@@ -605,3 +605,63 @@ def test_kernel_left_equals_the_cpu_port(card):
     A = mt.mul(mt.from_packed(lo, 1500), mt.from_packed(hi, 2048))
     Ah = mt.from_packed(A.data.cpu(), 2048, device="cpu")
     _same(mt.kernel_left(A), mt.kernel_left(Ah))
+
+
+@pytest.mark.parametrize("m,k,n,kparam", [(2048, 2048, 2048, 0),
+                                          (1500, 2100, 1000, 8)])
+def test_m4rm_equals_the_cpu_port(card, m, k, n, kparam):
+    import m4ri_tpu_torch as mt
+    A, Ah = _both_devices(91, m, k, card)
+    B, Bh = _both_devices(92, k, n, card)
+    C, Ch = _both_devices(93, m, n, card)
+    _same(mt.mul_m4rm(A, B, kparam), mt.mul_m4rm(Ah, Bh, kparam))
+    _same(mt.addmul_m4rm(C, A, B), mt.addmul_m4rm(Ch, Ah, Bh))
+
+
+def test_djb_apply_equals_the_cpu_port(card):
+    import m4ri_tpu_torch as mt
+    A, Ah = _both_devices(94, 256, 256, card)
+    V, Vh = _both_devices(95, 256, 2048, card)
+    prog = mt.djb_compile(Ah)
+    _same(mt.djb_apply(prog, V), mt.djb_apply(prog, Vh))
+
+
+@pytest.mark.parametrize("fmt", ["npz", "png"])
+def test_readers_put_the_matrix_on_the_card(card, tmp_path, fmt):
+    import m4ri_tpu_torch as mt
+    from m4ri_tpu_torch.utils import io
+    A, Ah = _both_devices(96, 1000, 2000, card)
+    path = str(tmp_path / f"m.{fmt}")
+    write, read = ((io.save_npz, io.load_npz) if fmt == "npz"
+                   else (io.write_png, io.read_png))
+    write(A, path)
+    _same(read(path, device="cuda"), Ah)
+    _same(read(path), Ah)   # device=None is the card
+
+
+@pytest.mark.parametrize("name,args", [
+    ("mzd_mul", lambda M: (None, M["a"], M["b"], 0)),
+    ("mzd_mul_m4rm", lambda M: (None, M["a"], M["b"], 0)),
+    ("mzd_addmul", lambda M: (M["c"], M["a"], M["b"], 0)),
+    ("mzd_echelonize", lambda M: (M["a"], True)),
+    ("mzd_ple", lambda M: (M["a"],)),
+    ("mzd_solve_left", lambda M: (M["a"], M["c"])),
+    ("mzd_kernel_left_pluq", lambda M: (M["s"],)),
+    ("mzd_transpose", lambda M: (None, M["s"])),
+    ("mzd_apply_p_left", lambda M: (M["a"], M["p"])),
+    ("mzd_process_rows", lambda M: (
+        M["a"], 4, 2048, 0, 4, *M["compat"].mzd_make_table(M["a"], 0, 0, 4))),
+])
+def test_compat_names_equal_the_cpu_port(card, name, args):
+    import m4ri_tpu_torch.compat as c
+    mats = {}
+    for key, seed, rows, cols in (("a", 97, 2048, 2048), ("b", 98, 2048, 256),
+                                  ("c", 99, 2048, 256), ("s", 100, 300, 1000)):
+        mats[key] = _both_devices(seed, rows, cols, card)
+    p = torch.from_numpy(np.random.default_rng(101).integers(
+        np.arange(2048), 2048).astype(np.int32))
+    dev = {k: v[0] for k, v in mats.items()} | {"p": p.to(card), "compat": c}
+    host = {k: v[1] for k, v in mats.items()} | {"p": p, "compat": c}
+    _same(getattr(c, name)(*args(dev)), getattr(c, name)(*args(host)))
+    assert c.mzd_init(256, 300).device.type == "cuda"
+    assert c.mzp_init(256).device.type == "cuda"

@@ -39,7 +39,9 @@ def test_the_walk_sees_the_port():
             "hopper_panel.py", "hopper_post.py", "ple.py", "echelon.py",
             "split_ple.py", "graycode.py", "bitops.py", "permutation.py",
             "triangular.py", "solve.py", "split_solve.py",
-            "tune_cutoffs.py"} <= names
+            "tune_cutoffs.py", "m4rm.py", "djb.py", "io.py", "compat.py",
+            "build.py"} <= names
+    assert PKG / "native" / "build.py" in FILES
 
 
 def test_every_kernel_source_has_a_wrapper_module():
@@ -63,11 +65,24 @@ def test_every_kernel_source_has_a_wrapper_module():
 
 
 _CHILD = r"""
+import subprocess
 import sys
 sys.modules["jax"] = None
 sys.modules["m4ri_tpu"] = None
 import numpy as np
+import torch
+
+
+def _no_compiler(*args, **kwargs):
+    raise AssertionError(f"importing the port started a process: {args[:1]}")
+
+
+popen, subprocess.Popen = subprocess.Popen, _no_compiler
 import m4ri_tpu_torch as mt
+import m4ri_tpu_torch.compat
+from m4ri_tpu_torch.native import build as native
+subprocess.Popen = popen
+assert native._lib is None and not native._tried, "import loaded gf2core"
 from m4ri_tpu_torch.ops import _build
 assert not _build.BUILD.exists() or not any(_build.BUILD.glob("*.so")), "import built something"
 rng = np.random.default_rng(3)
@@ -79,13 +94,15 @@ A = mt.from_numpy(a, device="cpu")
 M, P, Q, r = mt.ple(A, nb=32)
 assert r == mt.rank(A) == mt.block_factor(A, preserve_l=False, engine="hopper")[3]
 assert not _build.BUILD.exists() or not any(_build.BUILD.glob("*.so")), "the CPU path built something"
-import torch
 assert not torch.cuda.is_available()
 for make in (lambda: mt.zeros(4, 4), lambda: mt.identity(4),
              lambda: mt.from_numpy(a), lambda: mt.from_packed(np.zeros((2, 1), np.uint32), 5),
              lambda: mt.randomize(3, 3, torch.Generator()),
              lambda: mt.randomize_reference(3, 3),
-             lambda: mt.from_reference(np.zeros((2, 1), np.uint32), 5)):
+             lambda: mt.from_reference(np.zeros((2, 1), np.uint32), 5),
+             lambda: m4ri_tpu_torch.compat.mzd_init(3, 3),
+             lambda: m4ri_tpu_torch.compat.mzp_init(3),
+             lambda: m4ri_tpu_torch.compat.mzd_from_str(1, 2, "10")):
     try:
         make()
     except RuntimeError as e:

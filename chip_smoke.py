@@ -24,7 +24,12 @@ M4RI user surface: ``mul_m4rm`` at 4096^3 and 16384^3, ``djb_apply`` of a
 matrices through the card, the native C++ oracle at 2048, the reference
 C API program of tests/test_compat.py at 8192^2 plus every compat name that
 returns a matrix at 1024 (card against host), and ``mul`` at 65536^2 held by
-Freivalds' check.  The launch counters show that the kernels ran.  One JSON object per phase; the
+Freivalds' check; then the multi-device layer (``parallel/``) twice: on an
+NCCL group of one rank in this process, at the sizes of VERIFY_r05.json,
+and on a gloo group of 4 processes sharing the card (the cross-rank logic:
+2x2, 4x1 and 2-hosts-by-2 meshes, the miss branch), every output word for
+word the single-device entry point's.  The launch counters show that the
+kernels ran, on the distributed path too.  One JSON object per phase; the
 ``kernels`` line, the card's name and power limit, and last of all
 ``{"ok": true, "device": {...}}``.  Any mismatch, build failure or launch
 error ends the run with a non-zero exit code and without that last line.
@@ -45,6 +50,7 @@ import warnings
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 if not torch.cuda.is_available():
     sys.exit("chip_smoke.py: torch.cuda.is_available() is false; "
@@ -62,6 +68,12 @@ from m4ri_tpu_torch.ops.hopper_mul import gf2_mul_hopper, gf2_mul_plain
 from m4ri_tpu_torch.ops.hopper_mul2 import gf2_mul_hopper_v2
 from m4ri_tpu_torch.ops.hopper_panel import panel_loop_hopper, panel_loop_plain
 from m4ri_tpu_torch.ops.hopper_post import panel_post_hopper, panel_post_plain
+from m4ri_tpu_torch.parallel import dist_solve
+from m4ri_tpu_torch.parallel import mesh as mesh_mod
+from m4ri_tpu_torch.parallel._spawn import launch
+from m4ri_tpu_torch.parallel.dist_echelon import dist_echelonize, dist_rank
+from m4ri_tpu_torch.parallel.dist_mul import mul_dist, mul_dist_ksplit
+from m4ri_tpu_torch.parallel.dist_ple import dist_block_factor, dist_ple
 from m4ri_tpu_torch.ops.hopper_schur import (TILE_ROWS, TILE_WORDS,
                                              gf2_schur_update_dyn_hopper,
                                              gf2_schur_update_hopper,
@@ -1808,6 +1820,357 @@ def phase_mul_65536(seed: int) -> dict:
     return launched
 
 
+# ------------------------------------------------ the multi-device layer ---
+
+# the kernels the distributed path runs: rows 1, 2 and 5 of PERF.md's table
+DIST_KERNELS = ("gf2_mul_hopper", "gf2_mul_hopper_v2", "panel_loop_hopper")
+TRSMS = ("trsm_upper_left", "trsm_lower_left", "trsm_upper_right",
+         "trsm_lower_right")
+
+
+def lead_columns(words: torch.Tensor) -> torch.Tensor:
+    """The column of each (nonzero) row's first set bit."""
+    w = (words != 0).to(torch.uint8).argmax(dim=1)
+    x = words.gather(1, w[:, None])[:, 0]
+    low = x & -x                                     # the lowest set bit
+    one = torch.ones(32, dtype=torch.int32, device=words.device)
+    bit = (low[:, None] == one << torch.arange(32, dtype=torch.int32,
+                                               device=words.device))
+    return w.long() * 32 + bit.to(torch.uint8).argmax(dim=1)
+
+
+def same_echelon(what: str, E, r: int, A) -> None:
+    """E is a REF of A of rank r: rows past r zero, the leading columns of
+    the others increasing, and its RREF is the single-device RREF of A."""
+    check(not bool(E.data[r:].any()), f"{what}: rows past the rank not zero")
+    check(bool((E.data[:r] != 0).any(dim=1).all()), f"{what}: a zero row")
+    lead = lead_columns(E.data[:r])
+    check(bool((lead[1:] > lead[:-1]).all()),
+          f"{what}: leading columns do not increase")
+    (Re, re), (Ra, ra) = m4.echelonize(E, full=True), m4.echelonize(A, full=True)
+    check(re == ra == r and torch.equal(Re.data, Ra.data),
+          f"{what}: its RREF is not the RREF of the input")
+
+
+def same_words(what: str, got, want) -> None:
+    """Word for word: matrices, index arrays, ranks and flags."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        if isinstance(g, BitMatrix):
+            g, w = g.data, w.data
+        if isinstance(g, torch.Tensor):
+            ok = g.shape == w.shape and torch.equal(g, w.to(g.device))
+        else:
+            ok = g == w
+        check(ok, f"{what}: output {i} differs from the single-device entry "
+              "point's")
+
+
+def dist_case(name: str, cases: dict, total: dict, dist_fn, single_fn,
+              runs: int, **more):
+    """Run the distributed call with the counts set to 0 just before, then
+    the single-device entry point; both outputs are returned.  Both are
+    timed (host clock ended by a synchronize): ``runs`` calls after these
+    first ones, or with ``runs=1`` these first calls themselves (the slow
+    host-bound ones)."""
+    misses = dist_block_factor.miss_fallbacks
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got, launched = driven(dist_fn)
+    t1 = time.perf_counter()
+    add_counts(total, launched)
+    misses = dist_block_factor.miss_fallbacks - misses
+    want = single_fn()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    if runs == 1:
+        ms = [{"median": t * 1e3, "min": t * 1e3, "max": t * 1e3, "runs": 1,
+               "first_call": True} for t in (t1 - t0, t2 - t1)]
+    else:
+        ms = [time_host_ms(fn, runs, warmup=0) for fn in (dist_fn, single_fn)]
+    cases[name] = {"launches": launched, "miss_fallbacks": misses,
+                   "dist_ms": ms[0], "single_device_ms": ms[1], **more}
+    return got, want
+
+
+def phase_dist_nccl_1rank(seed: int) -> dict:
+    """The distributed path on an NCCL group of one rank in this process:
+    make_mesh() starts it (mesh 1 x 1, degenerate collectives through a real
+    communicator).  At the sizes of VERIFY_r05.json, on the inputs of the
+    phases above, each output word for word the single-device entry
+    point's, and both timed: what the distributed path costs over the
+    single-device one."""
+    check(not dist.is_initialized(), "a process group is already running")
+    mesh = mesh_mod.make_mesh()
+    try:
+        check(dist.get_backend() == "nccl" and tuple(mesh.shape) == (1, 1),
+              f"make_mesh() gave {mesh} on {dist.get_backend()}")
+        return _dist_nccl_cases(seed, mesh)
+    finally:
+        dist.destroy_process_group()
+
+
+def _dist_nccl_cases(seed: int, mesh) -> dict:
+    total, cases = {}, {}
+    staged = mesh_mod.host_staged_collectives
+    n = 16384
+    rng = np.random.default_rng(seed + 40)
+    A = m4.from_packed(packed(rng, n, n), n)
+    B = m4.from_packed(packed(rng, n, n), n)
+    for name, fn in (("mul_dist", mul_dist), ("mul_dist_ksplit", mul_dist_ksplit)):
+        got, want = dist_case(f"{name}_16384", cases, total,
+                              lambda: fn(A, B, mesh), lambda: m4.mul(A, B), 5)
+        same_words(f"{name} 16384", [got], [want])
+    del A, B, got, want
+
+    # the ple_32768 input: a product of rank 30000, at ple's panel width
+    n, k = 32768, 30000
+    rng = np.random.default_rng(seed + 12)
+    B = m4.from_packed(packed(rng, n, k), k)
+    C = m4.from_packed(packed(rng, k, n), n)
+    A = m4.mul(B, C)
+    del B, C
+    got, want = dist_case("dist_ple_32768", cases, total,
+                          lambda: dist_ple(A, mesh, nb=1024, window=1088),
+                          lambda: m4.ple(A), 3, rank=k)
+    check(got[3] == k, f"dist_ple 32768: rank {got[3]}")
+    same_words("dist_ple 32768", got, want)
+    del A, got, want
+
+    # the rank_rref_16384 input: dense random
+    n = 16384
+    A = m4.from_packed(packed(np.random.default_rng(seed + 22), n, n), n)
+    r, rk = dist_case("dist_rank_16384", cases, total,
+                      lambda: dist_rank(A, mesh), lambda: m4.rank(A), 1)
+    check(r == rk, f"dist_rank 16384: {r}, rank {rk}")
+    (E, re), _ = dist_case("dist_echelonize_16384", cases, total,
+                           lambda: dist_echelonize(A, mesh),
+                           lambda: m4.echelonize(A, full=False), 1)
+    check(re == r, f"dist_echelonize 16384: rank {re}, dist_rank {r}")
+    same_echelon("dist_echelonize 16384", E, r, A)
+    cases["dist_rank_16384"]["rank"] = r
+    del A, E
+
+    # the four TRSMs: a random unit triangular T with junk in the other
+    # triangle, and a 16384^2 B
+    rng = np.random.default_rng(seed + 21)
+    T = m4.from_packed(unit_diagonal(packed(rng, n, n)), n)
+    B = m4.from_packed(packed(rng, n, n), n)
+    for name in TRSMS:
+        dist_fn, fn = getattr(dist_solve, "dist_" + name), getattr(m4, name)
+        got, want = dist_case(f"dist_{name}_16384", cases, total,
+                              lambda: dist_fn(T, B, mesh), lambda: fn(T, B), 3)
+        same_words(f"dist_{name} 16384", [got], [want])
+    del T, B, got, want
+
+    # the solve_32768_b256 input: B = A X0, at solve_left's panel width
+    n, bc = 32768, 256
+    rng = np.random.default_rng(seed + 24)
+    A = m4.from_packed(packed(rng, n, n), n)
+    B = m4.from_packed(f32_product(A.data, n, packed(rng, n, bc), bc), bc)
+    got, want = dist_case(
+        "dist_solve_left_32768_b256", cases, total,
+        lambda: dist_solve.dist_solve_left(A, B, mesh, nb=1024, window=1088),
+        lambda: m4.solve_left(A, B), 1)
+    check(bool(got[1]) and bool(want[1]), "dist_solve_left 32768: inconsistent")
+    same_words("dist_solve_left 32768", [got[0]], [want[0]])
+    del A, B, got, want
+
+    # the invert_16384 input: unit lower times unit upper
+    n = 16384
+    rng = np.random.default_rng(seed + 23)
+    L = m4.from_packed(unit_diagonal(packed(rng, n, n)), n)
+    U = m4.from_packed(unit_diagonal(packed(rng, n, n)), n)
+    A = m4.mul(m4.extract_l(L), m4.extract_u(U))
+    del L, U
+    got, want = dist_case(
+        "dist_invert_16384", cases, total,
+        lambda: dist_solve.dist_invert(A, mesh, nb=512, window=576),
+        lambda: m4.invert(A), 1)
+    check(got[1] == n, f"dist_invert 16384: rank {got[1]}")
+    same_words("dist_invert 16384", got, want)
+    del A, got, want
+
+    # the kernel_left input: 4096^2 of rank 3000
+    n, k = 4096, 3000
+    rng = np.random.default_rng(seed + 25)
+    A = m4.from_packed(f32_product(packed(rng, n, k), k, packed(rng, k, n), n), n)
+    got, want = dist_case(
+        "dist_kernel_left_4096", cases, total,
+        lambda: dist_solve.dist_kernel_left(A, mesh, nb=512, window=576),
+        lambda: m4.kernel_left(A), 3)
+    same_words("dist_kernel_left 4096", got, want)
+    for name in DIST_KERNELS:
+        check(total.get(name, 0) > 0, f"the 1-rank distributed path never "
+              f"launched {name}")
+    emit("dist_nccl_1rank", ok=True, backend="nccl", world=1, mesh=[1, 1],
+         cases=cases, launches=total,
+         host_staged_collectives=mesh_mod.host_staged_collectives - staged,
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return total
+
+
+def gloo_input(seed: int, name: str):
+    """The inputs of phase dist_gloo_4rank, drawn alike by every rank and by
+    this process."""
+    rng = np.random.default_rng(seed + 50 + sorted(GLOO_SIZES).index(name))
+    n = GLOO_SIZES[name]
+    square = lambda: m4.from_packed(packed(rng, n, n), n)   # noqa: E731
+    if name in ("mul", "host"):
+        return square(), square()
+    if name == "deficient":                  # the ple_deficient input
+        a = packed(np.random.default_rng(seed + 11), n, n)
+        a[600:2000] = 0
+        return m4.from_packed(a, n)
+    if name == "trsm":
+        return m4.from_packed(unit_diagonal(packed(rng, n, n)), n), square()
+    if name == "solve":
+        A = square()
+        return A, m4.from_packed(f32_product(A.data, n, packed(rng, n, 256),
+                                             256), 256)
+    if name == "invert":
+        L, U = square(), square()
+        return m4.mul(m4.extract_l(BitMatrix(unit_diagonal(L.data), n)),
+                      m4.extract_u(BitMatrix(unit_diagonal(U.data), n)))
+    if name == "kernel":                     # the kernel_left input
+        k, rng = 3000, np.random.default_rng(seed + 25)
+        return m4.from_packed(f32_product(packed(rng, n, k), k,
+                                          packed(rng, k, n), n), n)
+    return square()                          # "ple", "echelon"
+
+
+GLOO_SIZES = {"mul": 16384, "ple": 16384, "deficient": 4096, "echelon": 8192,
+              "trsm": 8192, "solve": 16384, "invert": 8192, "kernel": 4096,
+              "host": 8192}
+
+
+def _gloo_rank(seed: int, work: str) -> None:
+    """One rank of phase dist_gloo_4rank (started by launch(): a gloo group
+    of 4 on the one card).  Every rank draws the same global inputs and
+    runs the distributed calls; rank 0 saves the outputs, every rank its
+    launch counts."""
+    rank = dist.get_rank()
+    sq = mesh_mod.make_mesh(shape=(2, 2))
+    col = mesh_mod.make_mesh(shape=(4, 1))
+    hosts = mesh_mod.make_multihost_mesh(local_world_size=2)
+    check(tuple(hosts.shape) == (2, 2) and mesh_mod.axis_index(hosts, "x")
+          == rank // 2, f"make_multihost_mesh gave {hosts}")
+    out, ms, misses = {}, {}, {}
+    zero_counts()
+
+    def run(name, fn):
+        m0 = dist_block_factor.miss_fallbacks
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[name] = fn()
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        misses[name] = dist_block_factor.miss_fallbacks - m0
+
+    A, B = gloo_input(seed, "mul")
+    run("mul_dist", lambda: mul_dist(A, B, sq))
+    run("mul_dist_ksplit", lambda: mul_dist_ksplit(A, B, sq))
+    A = gloo_input(seed, "ple")
+    run("dist_ple", lambda: dist_ple(A, col, nb=512, window=576))
+    A = gloo_input(seed, "deficient")
+    run("dist_ple_deficient", lambda: dist_ple(A, col, nb=512, window=576))
+    A = gloo_input(seed, "echelon")
+    run("dist_rank", lambda: dist_rank(A, col))
+    run("dist_echelonize", lambda: dist_echelonize(A, col))
+    T, B = gloo_input(seed, "trsm")
+    for name in TRSMS:
+        fn = getattr(dist_solve, "dist_" + name)
+        run("dist_" + name, lambda: fn(T, B, sq))
+    A, B = gloo_input(seed, "solve")
+    run("dist_solve_left", lambda: dist_solve.dist_solve_left(
+        A, B, col, nb=512, window=576))
+    A = gloo_input(seed, "invert")
+    run("dist_invert", lambda: dist_solve.dist_invert(A, sq, nb=512, window=576))
+    A = gloo_input(seed, "kernel")
+    run("dist_kernel_left", lambda: dist_solve.dist_kernel_left(
+        A, col, nb=512, window=576))
+    A, B = gloo_input(seed, "host")
+    run("host_mul_dist", lambda: mul_dist(A, B, hosts))
+    run("host_dist_ple", lambda: dist_ple(A, hosts, nb=512, window=576))
+    launched = counts()
+    if rank == 0:
+        torch.save({k: tuple(v) if isinstance(v, tuple) else (v,)
+                    for k, v in out.items()}, f"{work}/outputs.pt")
+    pathlib.Path(f"{work}/rank{rank}.json").write_text(json.dumps({
+        "launches": launched, "ms": ms, "miss_fallbacks": misses,
+        "host_staged_collectives": mesh_mod.host_staged_collectives}))
+
+
+def phase_dist_gloo_4rank(seed: int) -> dict:
+    """The cross-rank logic on the card: a gloo group of 4 processes on the
+    one GPU (NCCL takes one rank a card), card tensors, collectives staged
+    through host memory.  Uneven pivots across shards, pivots owned by other
+    ranks and the miss branch, with every output word for word the
+    single-device entry point's on the card, computed here from the same
+    inputs."""
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as work:
+        launch("chip_smoke:_gloo_rank", 4, work, backend="gloo", device="cuda",
+               args=[seed, work], timeout_s=600)
+        group_s = time.time() - t0
+        got = torch.load(f"{work}/outputs.pt", weights_only=False)
+        ranks = [json.loads(pathlib.Path(f"{work}/rank{r}.json").read_text())
+                 for r in range(4)]
+    total = {}
+    for rk in ranks:
+        add_counts(total, rk["launches"])
+    for name in DIST_KERNELS:
+        check(all(rk["launches"][name] > 0 for rk in ranks),
+              f"a rank of the 4-rank group never launched {name}: "
+              f"{[rk['launches'] for rk in ranks]}")
+    check(all(rk["host_staged_collectives"] > 0 for rk in ranks),
+          "the gloo group staged no collective through host memory")
+
+    t1 = time.time()
+    A, B = gloo_input(seed, "mul")
+    want = m4.mul(A, B)
+    same_words("mul_dist 4 ranks", got["mul_dist"], [want])
+    same_words("mul_dist_ksplit 4 ranks", got["mul_dist_ksplit"], [want])
+    A = gloo_input(seed, "ple")
+    same_words("dist_ple 4 ranks", got["dist_ple"], m4.ple(A, nb=512))
+    A = gloo_input(seed, "deficient")
+    same_words("dist_ple zeroed band 4 ranks", got["dist_ple_deficient"],
+               m4.ple(A, nb=512))
+    check(ranks[0]["miss_fallbacks"]["dist_ple_deficient"] > 0,
+          "the zeroed band took no miss branch on 4 ranks")
+    A = gloo_input(seed, "echelon")
+    (r,), (E, re) = got["dist_rank"], got["dist_echelonize"]
+    check(r == re == m4.rank(A), f"dist_rank 4 ranks: {r}, {re}")
+    same_echelon("dist_echelonize 4 ranks", E, r, A)
+    T, B = gloo_input(seed, "trsm")
+    for name in TRSMS:
+        same_words(f"dist_{name} 4 ranks", got["dist_" + name],
+                   [getattr(m4, name)(T, B)])
+    A, B = gloo_input(seed, "solve")
+    X, ok = m4.solve_left(A, B)
+    check(bool(got["dist_solve_left"][1]) and bool(ok), "solve: inconsistent")
+    same_words("dist_solve_left 4 ranks", got["dist_solve_left"][:1], [X])
+    A = gloo_input(seed, "invert")
+    same_words("dist_invert 4 ranks", got["dist_invert"], m4.invert(A))
+    A = gloo_input(seed, "kernel")
+    same_words("dist_kernel_left 4 ranks", got["dist_kernel_left"],
+               m4.kernel_left(A))
+    A, B = gloo_input(seed, "host")
+    same_words("mul_dist on 2 hosts x 2", got["host_mul_dist"], [m4.mul(A, B)])
+    same_words("dist_ple on 2 hosts x 2", got["host_dist_ple"],
+               m4.ple(A, nb=512))
+    torch.cuda.synchronize()
+    emit("dist_gloo_4rank", ok=True, backend="gloo", world=4,
+         meshes={"2x2": "products, TRSMs, invert", "4x1": "PLE, rank, "
+                 "echelon, solve, kernel", "2 hosts x 2": "make_multihost_mesh"},
+         sizes=GLOO_SIZES, group_seconds=group_s,
+         checks_seconds=time.time() - t1, rank0_ms=ranks[0]["ms"],
+         miss_fallbacks=ranks[0]["miss_fallbacks"], launches=total,
+         launches_by_rank=[rk["launches"] for rk in ranks],
+         host_staged_collectives=[rk["host_staged_collectives"] for rk in ranks])
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=17)
@@ -1838,6 +2201,16 @@ def main() -> int:
             add_counts(launches, phase(seed))
             surface[phase.__name__.removeprefix("phase_")] = time.time() - t
         emit("user_surface", seconds=surface, total_seconds=sum(surface.values()))
+        dist_total, dist_s = {}, {}
+        for phase in (phase_dist_nccl_1rank, phase_dist_gloo_4rank):
+            t = time.time()
+            add_counts(dist_total, phase(seed))
+            dist_s[phase.__name__.removeprefix("phase_")] = time.time() - t
+        add_counts(launches, dist_total)
+        for name in DIST_KERNELS:
+            report[name]["dist_launches"] = dist_total[name]
+        emit("multi_device", seconds=dist_s, total_seconds=sum(dist_s.values()),
+             launches=dist_total)
         phase_naive_and_golden(seed)
         for name, n in launches.items():
             check(n > 0, f"the main path never launched {name}")
@@ -1852,7 +2225,7 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # what bounds the pivot loop is its chain of steps; bytes go beside it
-    more = ("chain_floor_ms", "bytes_bound_ms")
+    more = ("chain_floor_ms", "bytes_bound_ms", "dist_launches")
     print(json.dumps({"kernels": [
         {**{k: r[k] for k in keys}, **{k: r[k] for k in more if k in r}}
         for r in report.values()]}))

@@ -18,8 +18,11 @@ permutations, TRSM / TRTRI, the echelon forms and inversion,
 ``solve_left`` / ``pluq_solve_left`` / ``kernel_left``, the Gray-table
 product (``mul_m4rm`` / ``addmul_m4rm``), DJB linear maps (``djb_compile`` /
 ``djb_apply``), matrix I/O (``utils/io.py``), the native C++ oracle
-(``native/``) and the reference C API by name (``compat``).  Still to port:
-``parallel/`` (the multi-device products and factorizations).
+(``native/``), the reference C API by name (``compat``) and the
+multi-device layer (``parallel/``: SUMMA and k-split products, row-sharded
+PLE / rank / echelon, distributed TRSM / solve / invert / kernel on
+``torch.distributed``, with its dry runs in ``dryrun.py``).  Like the JAX
+package, the top level does not export ``parallel``.
 """
 
 from .core.bitmatrix import (  # noqa: F401

@@ -232,12 +232,12 @@ def mzd_addmul_m4rm(c, a, b, k=0):
 
 
 def mzd_mul_mp(c, a, b, cutoff=0):
-    """OpenMP multiply analogue: a product over several devices (mp.c:39).
-    Needs ``m4ri_tpu_torch.parallel``, which is not ported yet: until then
-    this raises ModuleNotFoundError."""
+    """OpenMP multiply analogue: the SUMMA product over the ranks of the
+    process group (mp.c:39).  With no group yet, a 1-rank group is started
+    on the matrices' device."""
     from .parallel.dist_mul import mul_dist
     from .parallel.mesh import make_mesh
-    return mul_dist(a, b, make_mesh())
+    return mul_dist(a, b, make_mesh(device=a.device))
 
 
 # --- elimination / factorization ----------------------------------------
@@ -610,9 +610,7 @@ mzd_trtri_upper_russian = trtri_upper  # basecase engine name (triangular_russia
 
 
 def mzd_addmul_mp(c, a, b, cutoff=0):
-    """OpenMP addmul analogue (mp.c:162): a multi-device product + XOR.
-    Raises ModuleNotFoundError until ``m4ri_tpu_torch.parallel`` is
-    ported."""
+    """OpenMP addmul analogue (mp.c:162): the mesh product + XOR."""
     return add(c, mzd_mul_mp(None, a, b))
 
 

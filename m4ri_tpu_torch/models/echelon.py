@@ -24,7 +24,6 @@ import torch
 from ..core.bitmatrix import (BitMatrix, concat, density, identity,
                               mask_padding, submatrix, width_for)
 from ..core.transpose import transpose
-from ..ops.mul import pack_bits
 from ..utils.config import WORD_BITS, get_config
 from .ple import block_factor
 from .triangular import trsm_upper_left
@@ -45,9 +44,15 @@ def _pivot_selection(q: torch.Tensor, r: int, n: int, rmax: int):
     and S[k, k] = 1 for k >= r, so that REF @ S extracts the pivot columns
     as a GF(2) product (the form a distributed product can take)."""
     rows = _pivot_rows(q, r, rmax)
-    bits = torch.zeros((n, rmax), dtype=torch.int32, device=q.device)
-    bits[rows, torch.arange(rmax, device=q.device)] = 1
-    return pack_bits(bits)
+    k = torch.arange(rmax, device=q.device)
+    out = torch.zeros((n, width_for(rmax)), dtype=torch.int32, device=q.device)
+    # written packed; a row may take two bits (Q[k] = k' for a k' >= r),
+    # in different places, so their sum is their OR
+    out.index_put_((rows, k // WORD_BITS),
+                   torch.ones_like(k, dtype=torch.int32)
+                   << (k % WORD_BITS).to(torch.int32),
+                   accumulate=True)
+    return out
 
 
 def select_pivot_cols(data: torch.Tensor, q: torch.Tensor, r: int, m: int,

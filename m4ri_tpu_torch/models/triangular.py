@@ -69,37 +69,41 @@ def _split(n: int) -> int:
     return _round_up(n // 2, WORD_BITS)
 
 
-def _trtri(t: BitMatrix, upper: bool, cfg) -> BitMatrix:
-    """2x2 word-aligned recursion."""
+def _trtri(t: BitMatrix, upper: bool, mul_fn=mul, cfg=None) -> BitMatrix:
+    """2x2 word-aligned recursion.  ``mul_fn`` makes the block products:
+    the distributed layer passes its mesh product (parallel/dist_solve.py)."""
+    cfg = cfg or get_config()
     n = t.ncols
     assert t.nrows == n
     if n <= cfg.trsm_base:
         return mask_padding(BitMatrix(_tri_inv_base(t.data, n), n))
     n1 = _split(n)
     w1 = n1 // WORD_BITS
-    ai = _trtri(_block(t, 0, 0, n1, n1), upper, cfg)
-    di = _trtri(_block(t, n1, n1, n, n), upper, cfg)
+    ai = _trtri(_block(t, 0, 0, n1, n1), upper, mul_fn, cfg)
+    di = _trtri(_block(t, n1, n1, n, n), upper, mul_fn, cfg)
     out = torch.zeros((n, width_for(n)), dtype=torch.int32, device=t.device)
     out[:n1, :w1] = ai.data
     out[n1:, w1:] = di.data
     if upper:
         b = _block(t, 0, n1, n1, n)
-        out[:n1, w1:] = mul(mul(ai, b), di).data        # Ai B Di (n1 x n2)
+        out[:n1, w1:] = mul_fn(mul_fn(ai, b), di).data        # Ai B Di (n1 x n2)
     else:
         c = _block(t, n1, 0, n, n1)
-        out[n1:, :w1] = mul(mul(di, c), ai).data        # Di C Ai (n2 x n1)
+        out[n1:, :w1] = mul_fn(mul_fn(di, c), ai).data        # Di C Ai (n2 x n1)
     return mask_padding(BitMatrix(out, n))
 
 
-def _trsm_left_rec(t: BitMatrix, b: BitMatrix, upper: bool, cfg) -> BitMatrix:
+def _trsm_left_rec(t: BitMatrix, b: BitMatrix, upper: bool, mul_fn=mul,
+                   cfg=None) -> BitMatrix:
     """Solve T X = B by 2x2 block substitution WITHOUT forming T^{-1}
     (the reference's TRSM recursion, triangular.c:396-516).  For a narrow B
     this costs O(n^2 ncols(B)) work instead of the O(n^3) full inverse.
     A wide B substitutes down to trsm_wide_base before inverting."""
+    cfg = cfg or get_config()
     n = t.ncols
     wide = b.ncols * 4 >= n
     if n <= cfg.trsm_base or (wide and n <= cfg.trsm_wide_base):
-        return mul(_trtri(t, upper, cfg), b)
+        return mul_fn(_trtri(t, upper, mul_fn, cfg), b)
     n1 = _split(n)
     a = _block(t, 0, 0, n1, n1)
     d = _block(t, n1, n1, n, n)
@@ -107,25 +111,27 @@ def _trsm_left_rec(t: BitMatrix, b: BitMatrix, upper: bool, cfg) -> BitMatrix:
     b_bot = BitMatrix(b.data[n1:], b.ncols)
     if upper:
         # [A B; 0 D] [X1; X2] = [R1; R2]
-        x2 = _trsm_left_rec(d, b_bot, upper, cfg)
-        r1 = b_top.data ^ mul(_block(t, 0, n1, n1, n), x2).data
-        x1 = _trsm_left_rec(a, BitMatrix(r1, b.ncols), upper, cfg)
+        x2 = _trsm_left_rec(d, b_bot, upper, mul_fn, cfg)
+        r1 = b_top.data ^ mul_fn(_block(t, 0, n1, n1, n), x2).data
+        x1 = _trsm_left_rec(a, BitMatrix(r1, b.ncols), upper, mul_fn, cfg)
     else:
         # [A 0; C D] [X1; X2] = [R1; R2]
-        x1 = _trsm_left_rec(a, b_top, upper, cfg)
-        r2 = b_bot.data ^ mul(_block(t, n1, 0, n, n1), x1).data
-        x2 = _trsm_left_rec(d, BitMatrix(r2, b.ncols), upper, cfg)
+        x1 = _trsm_left_rec(a, b_top, upper, mul_fn, cfg)
+        r2 = b_bot.data ^ mul_fn(_block(t, n1, 0, n, n1), x1).data
+        x2 = _trsm_left_rec(d, BitMatrix(r2, b.ncols), upper, mul_fn, cfg)
     return mask_padding(BitMatrix(torch.cat([x1.data, x2.data]), b.ncols))
 
 
-def _trsm_right_rec(t: BitMatrix, b: BitMatrix, upper: bool, cfg) -> BitMatrix:
+def _trsm_right_rec(t: BitMatrix, b: BitMatrix, upper: bool, mul_fn=mul,
+                    cfg=None) -> BitMatrix:
     """Solve X T = B by 2x2 block substitution (reference:
     triangular.c:41-111, 301-390); the same strategy as _trsm_left_rec with
     the rows of B in the place of its columns."""
+    cfg = cfg or get_config()
     n = t.ncols
     wide = b.nrows * 4 >= n
     if n <= cfg.trsm_base or (wide and n <= cfg.trsm_wide_base):
-        return mul(b, _trtri(t, upper, cfg))
+        return mul_fn(b, _trtri(t, upper, mul_fn, cfg))
     n1 = _split(n)
     a = _block(t, 0, 0, n1, n1)
     d = _block(t, n1, n1, n, n)
@@ -133,48 +139,48 @@ def _trsm_right_rec(t: BitMatrix, b: BitMatrix, upper: bool, cfg) -> BitMatrix:
     b_r = _block(b, 0, n1, b.nrows, n)
     if upper:
         # [X1 X2] [A B; 0 D] = [R1 R2]: X1 A = R1; X2 D = R2 + X1 B
-        x1 = _trsm_right_rec(a, b_l, upper, cfg)
-        r2 = b_r.data ^ mul(x1, _block(t, 0, n1, n1, n)).data
-        x2 = _trsm_right_rec(d, BitMatrix(r2, n - n1), upper, cfg)
+        x1 = _trsm_right_rec(a, b_l, upper, mul_fn, cfg)
+        r2 = b_r.data ^ mul_fn(x1, _block(t, 0, n1, n1, n)).data
+        x2 = _trsm_right_rec(d, BitMatrix(r2, n - n1), upper, mul_fn, cfg)
     else:
         # [X1 X2] [A 0; C D] = [R1 R2]: X2 D = R2; X1 A = R1 + X2 C
-        x2 = _trsm_right_rec(d, b_r, upper, cfg)
-        r1 = b_l.data ^ mul(x2, _block(t, n1, 0, n, n1)).data
-        x1 = _trsm_right_rec(a, BitMatrix(r1, n1), upper, cfg)
+        x2 = _trsm_right_rec(d, b_r, upper, mul_fn, cfg)
+        r1 = b_l.data ^ mul_fn(x2, _block(t, n1, 0, n, n1)).data
+        x1 = _trsm_right_rec(a, BitMatrix(r1, n1), upper, mul_fn, cfg)
     return mask_padding(BitMatrix(torch.cat([x1.data, x2.data], dim=1), n))
 
 
 def trtri_upper(t: BitMatrix) -> BitMatrix:
     """U^{-1} for unit upper triangular U (reference: mzd_trtri_upper)."""
-    return _trtri(_clean_tri(t, True), True, get_config())
+    return _trtri(_clean_tri(t, True), True)
 
 
 def trtri_lower(t: BitMatrix) -> BitMatrix:
     """L^{-1} for unit lower triangular L."""
-    return _trtri(_clean_tri(t, False), False, get_config())
+    return _trtri(_clean_tri(t, False), False)
 
 
 def trsm_upper_left(u: BitMatrix, b: BitMatrix) -> BitMatrix:
     """Solve U X = B, i.e. X = U^{-1} B (reference: mzd_trsm_upper_left,
     triangular.c:457-516)."""
     assert u.nrows == u.ncols == b.nrows
-    return _trsm_left_rec(_clean_tri(u, True), b, True, get_config())
+    return _trsm_left_rec(_clean_tri(u, True), b, True)
 
 
 def trsm_lower_left(l: BitMatrix, b: BitMatrix) -> BitMatrix:
     """Solve L X = B (reference: mzd_trsm_lower_left, triangular.c:396-451)."""
     assert l.nrows == l.ncols == b.nrows
-    return _trsm_left_rec(_clean_tri(l, False), b, False, get_config())
+    return _trsm_left_rec(_clean_tri(l, False), b, False)
 
 
 def trsm_upper_right(u: BitMatrix, b: BitMatrix) -> BitMatrix:
     """Solve X U = B, i.e. X = B U^{-1} (reference: mzd_trsm_upper_right,
     triangular.c:41-111)."""
     assert u.nrows == u.ncols == b.ncols
-    return _trsm_right_rec(_clean_tri(u, True), b, True, get_config())
+    return _trsm_right_rec(_clean_tri(u, True), b, True)
 
 
 def trsm_lower_right(l: BitMatrix, b: BitMatrix) -> BitMatrix:
     """Solve X L = B (reference: mzd_trsm_lower_right, triangular.c:301-390)."""
     assert l.nrows == l.ncols == b.ncols
-    return _trsm_right_rec(_clean_tri(l, False), b, False, get_config())
+    return _trsm_right_rec(_clean_tri(l, False), b, False)

@@ -14,6 +14,7 @@ import m4ri_tpu as mj
 import m4ri_tpu.compat as jc
 import m4ri_tpu_torch as mt
 import m4ri_tpu_torch.compat as tc
+from m4ri_tpu_torch.parallel import mesh as tmesh
 from m4ri_tpu.utils import io as jio
 from m4ri_tpu.utils.rng import GlibcRandom as JGlibcRandom
 from m4ri_tpu_torch.utils.rng import GlibcRandom as TGlibcRandom
@@ -442,11 +443,26 @@ def test_compat_files_equal_jax(rng, tmp_path):
                 tc.mzd_from_jcf(str(tmp_path / "j.jcf"), 0, device="cpu"))
 
 
-def test_mul_mp_waits_for_the_parallel_slice(rng):
-    """The multi-device product needs ``m4ri_tpu_torch.parallel``, which is
-    not ported yet: it raises, and no stand-in product hides that."""
-    A = mt.from_numpy(random_dense(rng, 8, 8), device="cpu")
-    with pytest.raises(ModuleNotFoundError, match="parallel"):
-        tc.mzd_mul_mp(None, A, A)
-    with pytest.raises(ModuleNotFoundError, match="parallel"):
-        tc.mzd_addmul_mp(A, A, A)
+@pytest.fixture
+def one_rank_group():
+    """mzd_mul_mp starts a 1-rank group in this process; end it after."""
+    import torch.distributed as dist
+    assert not dist.is_initialized()
+    yield
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 8, 8), (70, 130, 45)])
+def test_mul_mp_equals_jax(rng, one_rank_group, m, k, n):
+    """The multi-device product and add-mul through the SUMMA path of
+    ``parallel/`` (a 1-rank gloo group started by the call itself, as the
+    JAX package's makes a mesh of its devices) equal the JAX package's."""
+    import torch.distributed as dist
+    (Aj, At), (Bj, Bt), (Cj, Ct) = (both(random_dense(rng, *s))
+                                    for s in ((m, k), (k, n), (m, n)))
+    assert_same(jc.mzd_mul_mp(None, Aj, Bj), tc.mzd_mul_mp(None, At, Bt))
+    assert dist.get_world_size() == 1 and dist.get_backend() == "gloo"
+    assert_same(jc.mzd_addmul_mp(Cj, Aj, Bj), tc.mzd_addmul_mp(Ct, At, Bt))
+    # the second call took the first one's mesh: no new process groups
+    assert tmesh.make_mesh(device="cpu") is tmesh.make_mesh(device="cpu")

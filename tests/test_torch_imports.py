@@ -40,7 +40,10 @@ def test_the_walk_sees_the_port():
             "split_ple.py", "graycode.py", "bitops.py", "permutation.py",
             "triangular.py", "solve.py", "split_solve.py",
             "tune_cutoffs.py", "m4rm.py", "djb.py", "io.py", "compat.py",
-            "build.py"} <= names
+            "build.py", "mesh.py", "dist_mul.py", "dist_echelon.py",
+            "dist_ple.py", "dist_solve.py", "_spawn.py", "dryrun.py"} <= names
+    assert PKG / "parallel" / "dist_ple.py" in FILES
+    assert PKG / "dryrun.py" in FILES
     assert PKG / "native" / "build.py" in FILES
 
 

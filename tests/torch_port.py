@@ -3,6 +3,9 @@
 The same numpy input goes into the JAX package and into the port (on the
 CPU); outputs are compared word for word.  GF(2) is exact: tolerance 0."""
 
+import pickle
+import types
+
 import numpy as np
 import torch
 
@@ -48,3 +51,49 @@ def with_bit31(rng, m, n):
     a = random_dense(rng, m, n)
     a[:, 31::32] = 1
     return a
+
+
+def _same(x, y) -> bool:
+    if isinstance(x, dict):
+        return x.keys() == y.keys() and all(_same(x[k], y[k]) for k in x)
+    if isinstance(x, (tuple, list)):
+        return len(x) == len(y) and all(_same(a, b) for a, b in zip(x, y))
+    if isinstance(x, np.ndarray):
+        return x.dtype == y.dtype and np.array_equal(x, y)
+    return x == y
+
+
+def _matrices(x):
+    """Port matrices as written by run_calls -> objects assert_same takes."""
+    if isinstance(x, dict) and "words" in x:
+        return types.SimpleNamespace(data=x["words"], ncols=x["ncols"])
+    if isinstance(x, tuple):
+        return tuple(_matrices(v) for v in x)
+    return x
+
+
+def spawn_calls(calls, workdir, world=4, timeout_s=300):
+    """Run ``calls`` (m4ri_tpu_torch.parallel._spawn.run_calls) on a
+    spawned ``world``-rank gloo group on the CPU.  Returns {name: (rank 0's
+    output, whether every rank got the same)}."""
+    from m4ri_tpu_torch.parallel._spawn import launch
+    calls_path, out = workdir / "calls.pkl", workdir / "out"
+    with open(calls_path, "wb") as f:
+        pickle.dump(calls, f)
+    launch("m4ri_tpu_torch.parallel._spawn:run_calls", world, workdir,
+           backend="gloo", device="cpu",
+           args=[str(calls_path), str(out), "cpu"], timeout_s=timeout_s)
+    ranks = []
+    for r in range(world):
+        with open(f"{out}.{r}", "rb") as f:
+            ranks.append(pickle.load(f))
+    return {name: (_matrices(got), all(_same(got, rk[name]) for rk in ranks))
+            for name, got in ranks[0].items()}
+
+
+def jax_mesh(rows, cols):
+    """A JAX mesh of the port group's shape over the first virtual devices."""
+    import jax
+    from jax.sharding import Mesh
+    return Mesh(np.array(jax.devices()[:rows * cols]).reshape(rows, cols),
+                ("x", "y"))

@@ -28,8 +28,16 @@ Freivalds' check; then the multi-device layer (``parallel/``) twice: on an
 NCCL group of one rank in this process, at the sizes of VERIFY_r05.json,
 and on a gloo group of 4 processes sharing the card (the cross-rank logic:
 2x2, 4x1 and 2-hosts-by-2 meshes, the miss branch), every output word for
-word the single-device entry point's.  The launch counters show that the
-kernels ran, on the distributed path too.  One JSON object per phase; the
+word the single-device entry point's; then the batched path
+(``models/batched.py``): ``rank_batched`` of 2^20 random 32 x 32 matrices
+(the NIST SP 800-22 binary matrix rank test) against a numpy elimination,
+``block_factor_batched`` of 256 McEliece-shaped 768 x 3488 matrices and of
+16 4096^2 ones with zeroed bands (the miss fallback) against the
+single-matrix ``block_factor``, and ``mul_packed_batched`` of 1024 products
+512^2 x 512^2 against ``mul_packed_data`` and Freivalds' check; its three
+batched kernels are held to their batched plain versions on the McEliece
+batch's first panel.  The launch counters show that the kernels ran, on the
+distributed and batched paths too.  One JSON object per phase; the
 ``kernels`` line, the card's name and power limit, and last of all
 ``{"ok": true, "device": {...}}``.  Any mismatch, build failure or launch
 error ends the run with a non-zero exit code and without that last line.
@@ -57,17 +65,20 @@ if not torch.cuda.is_available():
              "this script runs on the GPU only")
 
 import m4ri_tpu_torch as m4
-from m4ri_tpu_torch.benches.peaks import (PEAK_B1_OPS_PER_S, PEAK_BYTES_PER_S,
+from m4ri_tpu_torch.benches.peaks import (PEAK_ALU32_OPS_PER_S,
+                                          PEAK_B1_OPS_PER_S, PEAK_BYTES_PER_S,
                                           schur_bound)
 from m4ri_tpu_torch.benches.probe_mma import probe as probe_mma
 from m4ri_tpu_torch.core import permutation as perm_mod
 from m4ri_tpu_torch.core.bitmatrix import BitMatrix, mask_padding
+from m4ri_tpu_torch.models import batched as batched_mod
 from m4ri_tpu_torch.models import ple as ple_mod
-from m4ri_tpu_torch.ops import _build, hopper_panel, hopper_post
+from m4ri_tpu_torch.ops import _build, hopper_panel, hopper_post, hopper_schur
 from m4ri_tpu_torch.ops.hopper_mul import gf2_mul_hopper, gf2_mul_plain
 from m4ri_tpu_torch.ops.hopper_mul2 import gf2_mul_hopper_v2
 from m4ri_tpu_torch.ops.hopper_panel import panel_loop_hopper, panel_loop_plain
 from m4ri_tpu_torch.ops.hopper_post import panel_post_hopper, panel_post_plain
+from m4ri_tpu_torch.ops.mul import mul_packed_data
 from m4ri_tpu_torch.parallel import dist_solve
 from m4ri_tpu_torch.parallel import mesh as mesh_mod
 from m4ri_tpu_torch.parallel._spawn import launch
@@ -107,6 +118,19 @@ KERNELS = {
     "panel_post_hopper": dict(
         fn=panel_post_hopper, source="m4ri_tpu_torch/csrc/gf2_post_hopper.cu",
         replaces="m4ri_tpu/ops/pallas_post.py:99"),
+    # the batched path's forms of rows 5, 6 and 4 (the bounds on the card)
+    "panel_loop_hopper_batched": dict(
+        fn=hopper_panel.panel_loop_hopper_batched,
+        source="m4ri_tpu_torch/csrc/gf2_panel_hopper.cu",
+        replaces="m4ri_tpu/ops/pallas_panel.py:168"),
+    "panel_post_hopper_batched": dict(
+        fn=hopper_post.panel_post_hopper_batched,
+        source="m4ri_tpu_torch/csrc/gf2_post_hopper.cu",
+        replaces="m4ri_tpu/ops/pallas_post.py:99"),
+    "gf2_schur_update_batched_hopper": dict(
+        fn=hopper_schur.gf2_schur_update_batched_hopper,
+        source="m4ri_tpu_torch/csrc/gf2_schur_hopper.cu",
+        replaces="m4ri_tpu/ops/pallas_schur.py:255"),
 }
 GEMMS = ("gf2_mul_hopper", "gf2_mul_hopper_v2")
 SOURCES = ["gf2_gemm_hopper", "gf2_schur_hopper",
@@ -2171,6 +2195,414 @@ def phase_dist_gloo_4rank(seed: int) -> dict:
     return total
 
 
+# ------------------------------------------------------ the batched path ---
+
+BATCHED = ("panel_loop_hopper_batched", "panel_post_hopper_batched",
+           "gf2_schur_update_batched_hopper")
+# no single PyTorch call computes a packed GF(2) product, a masked in-place
+# update, a pivot loop or the fused elimination
+NO_LIBRARY = ("no PyTorch call computes this function: a packed GF(2) "
+              "product / masked in-place update, a pivot loop, or the fused "
+              "below-window elimination")
+# Classic McEliece mceliece348864: n = 3488, n - k = m*t = 12*64 = 768
+MCELIECE = (256, 768, 3488)
+NIST = (1 << 20, 32)           # SP 800-22 section 2.5: M = Q = 32, 2^30 bits
+NIST_SHARES = {"32": 0.2888, "31": 0.5776, "<=30": 0.1336}
+
+
+def stack_on_card(seed: int, B: int, rows: int, cols: int) -> torch.Tensor:
+    """B packed rows x cols matrices made on the card from ``seed``, the
+    padding bits zero."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    w = (cols + 31) // 32
+    x = torch.randint(-2**31, 2**31, (B, rows, w), dtype=torch.int32,
+                      device=DEV, generator=g)
+    if cols % 32:
+        x[:, :, -1] &= (1 << (cols % 32)) - 1
+    return x
+
+
+def batch_counts() -> dict:
+    return counts(BATCHED)
+
+
+def batched_stats(fn):
+    """(result, launches, host syncs, miss fallbacks, peak GB) of ``fn``,
+    every count set to 0 just before."""
+    zero_counts()
+    s0, f0 = (batched_mod.block_factor_batched.host_syncs,
+              batched_mod.block_factor_batched.miss_fallbacks)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, counts(), batched_mod.block_factor_batched.host_syncs - s0,
+            batched_mod.block_factor_batched.miss_fallbacks - f0,
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def same_as_single(got, data, ncols: int, pres: bool, what: str) -> None:
+    """Each element of a batched factorization equals the single-matrix
+    block_factor on the card: body, P, Q and rank."""
+    for i in range(data.shape[0]):
+        want = m4.block_factor(BitMatrix(data[i], ncols), preserve_l=pres)
+        for g, w, part in zip(got[:3], want[:3], ("data", "P", "Q")):
+            check(torch.equal(g[i], w), f"{what}: element {i}'s {part} differs "
+                  "from the single-matrix block_factor")
+        check(int(got[3][i]) == want[3], f"{what}: element {i}'s rank")
+
+
+def capture_first_panel(data, ncols: int, pres: bool) -> dict:
+    """The operands the batched sweep gives kernels a, b and c on its first
+    panel, cloned as they are handed over (not counted: a run apart from
+    the main path's)."""
+    seen = {}
+    names = {"panel_loop_hopper_batched": 1, "panel_post_hopper_batched": 1,
+             "gf2_schur_update_batched_hopper": 2}   # the U rows, the update
+    real = {name: getattr(batched_mod, name) for name in names}
+
+    def recorder(name):
+        def rec(*args):
+            calls = seen.setdefault(name, [])
+            if len(calls) < names[name]:
+                calls.append([a.clone() if isinstance(a, torch.Tensor) else a
+                              for a in args])
+            return real[name](*args)
+        return rec
+
+    for name in names:
+        setattr(batched_mod, name, recorder(name))
+    try:
+        batched_mod.block_factor_batched(data, ncols, pres)
+        torch.cuda.synchronize()
+    finally:
+        for name, fn in real.items():
+            setattr(batched_mod, name, fn)
+    check(all(len(seen.get(n, ())) == k for n, k in names.items()),
+          f"the first panel did not reach every batched kernel: "
+          f"{ {n: len(v) for n, v in seen.items()} }")
+    return {n: v[-1] for n, v in seen.items()}
+
+
+def roofline(nbytes: float, b1_ops: float = 0.0, alu_ops: float = 0.0) -> dict:
+    """The larger of bytes over the memory rate and operations over their
+    peak: 1-bit tensor-core operations, or 32-bit operations outside the
+    tensor cores (an XOR of a word is one)."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = (b1_ops / PEAK_B1_OPS_PER_S + alu_ops / PEAK_ALU32_OPS_PER_S) * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def batched_schur_bound(m: int, k: int, nw: int, r0s, c0w: int) -> dict:
+    """schur_bound summed over the elements: bytes and operations of each
+    element's exact active rectangle."""
+    t_bytes = t_ops = 0.0
+    kw = (k + 31) // 32
+    for r0 in r0s:
+        rows, words = max(0, m - max(r0, 0)), max(0, nw - max(c0w, 0))
+        t_bytes += 4 * (2 * rows * words + rows * kw + k * words)
+        t_ops += 2 * rows * k * words * 32
+    t_bytes /= PEAK_BYTES_PER_S / 1e3
+    t_ops /= PEAK_B1_OPS_PER_S / 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def phase_batched_kernels(seed: int) -> dict:
+    """Kernels a, b and c against their batched plain versions on the card,
+    on the operands the McEliece batch's first panel gives them (the whole
+    batch), and their times there beside their bounds."""
+    B, m, n = MCELIECE
+    data = stack_on_card(seed + 900, B, m, n)
+    ops = capture_first_panel(data, n, False)
+    report, bad = {}, {}
+
+    def entry(name, fn, plain, timed, timed_plain, bnd, **more):
+        got, want = fn(), plain()
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        bad[name] = max(int(g.shape != w.shape or bool((g != w).any()))
+                        for g, w in zip(got, want))
+        check(bad[name] == 0, f"{name} disagrees with its batched plain version")
+        t = time_ms(timed)
+        tp = time_ms(timed_plain, runs=3, warmup=1)
+        report[name] = kernel_entry(
+            name, 0, {"ms": t["median"], "plain_ms": tp["median"], **bnd},
+            ms_min=t["min"], ms_max=t["max"], runs=t["runs"],
+            library_note=NO_LIBRARY, batch=B, **more)
+
+    # a: the pivot loop on 256 windows of 576 rows, nb = 512
+    al0, r0, base, mm, nb, pres, sw = ops["panel_loop_hopper_batched"]
+    h, w2 = al0.shape[1:]
+    la = (lambda: hopper_panel.panel_loop_hopper_batched(al0, r0, base, mm, nb,
+                                                         pres, sw))
+    lp_ = (lambda: hopper_panel.panel_loop_batched_plain(al0, r0, base, mm, nb,
+                                                         pres, sw))
+    got = la()
+    # each elimination XORs the pivot row's nb/32 panel words into a row and
+    # sets one multiplier bit: the L half of the output counts them
+    elims = int(popcount32(got[0][:, :, w2 // 2:]).sum())
+    entry("panel_loop_hopper_batched", lambda: got, lp_, la, lp_,
+          roofline(4 * B * (2 * h * w2 + h + 4 * nb + 1),
+                   alu_ops=elims * (w2 // 2)),
+          timed_at=[B, h, w2], eliminations=elims)
+    # b: the elimination below each window, 1792 rows
+    xw, msm, wm, cmb, below0, mvalid = ops["panel_post_hopper_batched"]
+    nbw = xw.shape[2]
+    rows = int((mvalid - below0).clamp(min=0).sum())
+    pb = (lambda: hopper_post.panel_post_hopper_batched(xw, msm, wm, cmb,
+                                                        below0, mvalid))
+    pp = (lambda: hopper_post.panel_post_batched_plain(xw, msm, wm, cmb,
+                                                       below0, mvalid))
+    entry("panel_post_hopper_batched", pb, pp, pb, pp,
+          roofline(B * (4 * 3 * xw.shape[1] * nbw + 2 * (32 * nbw) ** 2
+                        + 32 * nbw + 1), b1_ops=2 * 2 * rows * (32 * nbw) ** 2),
+          timed_at=list(xw.shape))
+    # c: the trailing update, C 768 x 112 words (the real rows: the sweep
+    # hands the kernel no padding row), k = 512, c0w = 16; timed in place on
+    # one C (the work does not depend on the words)
+    c, lp, up, r0s, c0w = ops["gf2_schur_update_batched_hopper"]
+    cc = c.clone()
+    entry("gf2_schur_update_batched_hopper",
+          lambda: hopper_schur.gf2_schur_update_batched_hopper(
+              c.clone(), lp, up, r0s, c0w),
+          lambda: hopper_schur.gf2_schur_update_plain(c.clone(), lp, up),
+          lambda: hopper_schur.gf2_schur_update_batched_hopper(
+              cc, lp, up, r0s, c0w),
+          lambda: hopper_schur.gf2_schur_update_plain(cc, lp, up),
+          batched_schur_bound(c.shape[1], up.shape[1], c.shape[2],
+                              r0s.tolist(), c0w),
+          timed_at=list(c.shape) + [up.shape[1]], c0w=c0w)
+    emit("kernels_batched", kernels=list(report.values()))
+    return report
+
+
+def popcount32(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of each int32 word (masked shifts: no sign copies)."""
+    x = x.to(torch.int64) & 0xFFFFFFFF
+    n = torch.zeros_like(x)
+    for s in range(32):
+        n += (x >> s) & 1
+    return n
+
+
+def nist_ranks_numpy(words: np.ndarray) -> np.ndarray:
+    """Ranks of [B, 32] uint32 rows (row r of element b: bit c = column c),
+    by Gauss-Jordan elimination vectorised over the batch: 32 column steps,
+    each the first unused row with the bit as pivot, XORed into every other
+    row with the bit.  Independent of the port; threads over the batch."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def ranks(rows):
+        rows = rows.copy()
+        B = rows.shape[0]
+        used = np.zeros(rows.shape, bool)
+        r = np.zeros(B, np.int64)
+        ar = np.arange(B)
+        idx = np.arange(32)[None, :]
+        for c in range(32):
+            bit = ((rows >> np.uint32(c)) & 1).astype(bool)
+            cand = bit & ~used
+            has = cand.any(axis=1)
+            piv = cand.argmax(axis=1)
+            prow = rows[ar, piv]
+            hit = bit & (idx != piv[:, None]) & has[:, None]
+            rows ^= np.where(hit, prow[:, None], np.uint32(0))
+            used[ar[has], piv[has]] = True
+            r += has
+        return r
+
+    chunks = np.array_split(words, 16)
+    with ThreadPoolExecutor(8) as ex:
+        return np.concatenate(list(ex.map(ranks, chunks)))
+
+
+def phase_batched_rank_nist(seed: int) -> dict:
+    """rank_batched of 2^20 random 32 x 32 matrices, one 2^30-bit sequence
+    of the NIST SP 800-22 binary matrix rank test; every rank equal to a
+    numpy elimination on the host."""
+    B, n = NIST
+    data = stack_on_card(seed + 901, B, n, n)
+    ranks, launched, syncs, misses, peak = batched_stats(
+        lambda: m4.rank_batched(data, n))
+    t0 = time.perf_counter()
+    want = nist_ranks_numpy(data[:, :, 0].cpu().numpy().view(np.uint32))
+    host_s = time.perf_counter() - t0
+    got = ranks.cpu().numpy()
+    check(np.array_equal(got, want),
+          f"NIST ranks: {int((got != want).sum())} of {B} differ from numpy")
+    check(launched["panel_loop_hopper_batched"] == 1
+          and launched["panel_post_hopper_batched"] == 1
+          and launched["gf2_schur_update_batched_hopper"] == 0,
+          f"rank_batched 32x32 launched {batch_counts()}")
+    check(syncs == 1 and misses == 0, f"{syncs} read-backs, {misses} fallbacks")
+    t = time_host_ms(lambda: m4.rank_batched(data, n), runs=3)
+    some = 64
+    same_as_single(m4.block_factor_batched(data[:some], n, False), data[:some],
+                   n, False, "NIST 32x32")
+    loop = time_host_ms(lambda: [m4.rank(BitMatrix(data[i], n))
+                                 for i in range(some)], runs=1)
+    shares = {"32": float((got == 32).mean()), "31": float((got == 31).mean()),
+              "<=30": float((got <= 30).mean())}
+    emit("batched_rank_nist", ok=True, batch=B, shape=[n, n], ms=t,
+         calls_per_s=B / t["median"] * 1e3,
+         loop_of_single_rank_ms_per_matrix=loop["median"] / some,
+         host_numpy_seconds=host_s, host_syncs=syncs, miss_fallbacks=misses,
+         launches=launched, peak_memory_gb=peak, rank_shares=shares,
+         expected_shares=NIST_SHARES)
+    return launched
+
+
+def phase_batched_factor_mceliece(seed: int) -> dict:
+    """block_factor_batched of 256 dense random 768 x 3488 matrices, the
+    parity-check shape of Classic McEliece mceliece348864, with and without
+    L; every element equal to the single-matrix block_factor on the card."""
+    B, m, n = MCELIECE
+    data = stack_on_card(seed + 900, B, m, n)
+    total, per = {}, {}
+    for pres in (False, True):
+        got, launched, syncs, misses, peak = batched_stats(
+            lambda: m4.block_factor_batched(data, n, pres))
+        add_counts(total, launched)
+        check(all(launched[k] > 0 for k in BATCHED),
+              f"McEliece preserve_l={pres} launched {launched}")
+        same_as_single(got, data, n, pres, f"McEliece preserve_l={pres}")
+        per[f"preserve_l={pres}"] = {
+            "host_syncs": syncs, "miss_fallbacks": misses, "launches": launched,
+            "peak_memory_gb": peak, "ranks": sorted(set(got[3].tolist()))}
+    t = time_host_ms(lambda: m4.block_factor_batched(data, n, False), runs=3)
+    loop = time_host_ms(lambda: [m4.block_factor(BitMatrix(data[i], n), False)
+                                 for i in range(B)], runs=1)
+    emit("batched_factor_mceliece", ok=True, batch=B, shape=[m, n],
+         ms=t, calls_per_s=B / t["median"] * 1e3,
+         loop_of_single_block_factor_ms=loop["median"],
+         batched_over_loop=loop["median"] / t["median"], runs=per)
+    return total
+
+
+def phase_batched_miss_4096(seed: int) -> dict:
+    """block_factor_batched of 16 4096^2 matrices, every fourth with rows
+    600-1999 zeroed (phase_ple_deficient's pattern): those elements take the
+    full-height fallback, ranks differ across the batch, and each element
+    equals the single-matrix result."""
+    B, n = 16, 4096
+    data = stack_on_card(seed + 902, B, n, n)
+    data[::4, 600:2000] = 0
+    panels = n // NB_16K
+    got, launched, syncs, misses, peak = batched_stats(
+        lambda: m4.block_factor_batched(data, n, True))
+    same_as_single(got, data, n, True, "batched miss 4096")
+    ranks = got[3].tolist()
+    check(misses > 0 and len(set(ranks)) > 1,
+          f"no miss fallback or equal ranks: {misses}, {ranks}")
+    # one read-back a panel, one more on a panel with a miss (at most one
+    # such panel per fallback), none in the fallbacks themselves
+    check(panels < syncs <= panels + min(misses, panels),
+          f"{syncs} read-backs over {panels} panels, {misses} fallbacks")
+    check(launched["panel_loop_hopper"] == misses,
+          f"the fallbacks launched {launched['panel_loop_hopper']} single loops")
+    # every call that waits for the card, as PyTorch's sync debug mode sees
+    # them, is one the sweep counts
+    s0 = batched_mod.block_factor_batched.host_syncs
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            m4.block_factor_batched(data, n, True)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    waits = sum("synchroniz" in str(w.message) for w in caught)
+    check(waits == batched_mod.block_factor_batched.host_syncs - s0 == syncs,
+          f"{waits} synchronising calls, {syncs} counted read-backs")
+    t = time_host_ms(lambda: m4.block_factor_batched(data, n, True), runs=3)
+    loop = time_host_ms(lambda: [m4.block_factor(BitMatrix(data[i], n), True)
+                                 for i in range(B)], runs=1)
+    emit("batched_miss_4096", ok=True, batch=B, n=n, ranks=ranks, ms=t,
+         calls_per_s=B / t["median"] * 1e3,
+         loop_of_single_block_factor_ms=loop["median"],
+         batched_over_loop=loop["median"] / t["median"], host_syncs=syncs,
+         synchronising_calls=waits, miss_fallbacks=misses, panels=panels,
+         launches=launched,
+         peak_memory_gb=peak)
+    return launched
+
+
+def phase_batched_one(seed: int) -> dict:
+    """A batch of one through the batched sweep beside the single-matrix
+    block_factor (preserve_l=True) at 16384^2 and 32768^2, dense random:
+    the results equal, both timed in turns on the host clock.  What running
+    the single path through the batched sweep would cost."""
+    total, out = {}, {}
+    for n in (16384, 32768):
+        data = packed(np.random.default_rng(seed + 906 + n // 16384), n, n)
+        A = m4.from_packed(data, n)
+        got, launched, syncs, misses, peak = batched_stats(
+            lambda: m4.block_factor_batched(data[None], n, True))
+        add_counts(total, launched)
+        want = m4.block_factor(A, preserve_l=True)
+        for g, w, part in zip(got[:3], want[:3], ("data", "P", "Q")):
+            check(torch.equal(g[0], w), f"batch of one {n}: {part} differs")
+        check(int(got[3][0]) == want[3], f"batch of one {n}: rank")
+        del got, want
+        single, batched = [], []
+        for _ in range(3):
+            for fn, ts in ((lambda: m4.block_factor(A, preserve_l=True),
+                            single),
+                           (lambda: m4.block_factor_batched(data[None], n,
+                                                            True), batched)):
+                ts.append(time_host_ms(fn, runs=1, warmup=0)["median"])
+        out[str(n)] = {"block_factor_ms": single, "batched_ms": batched,
+                       "batched_over_single": statistics.median(batched)
+                       / statistics.median(single),
+                       "host_syncs": syncs, "miss_fallbacks": misses,
+                       "peak_memory_gb": peak}
+        del A, data
+    emit("batched_one", ok=True, preserve_l=True, runs=out)
+    return total
+
+
+def phase_batched_mul_512(seed: int) -> dict:
+    """mul_packed_batched of 1024 products 512^2 x 512^2: each element equal
+    to mul_packed_data on the card, the whole batch held by Freivalds'
+    check (float32 products of the unpacked bits, TF32 off)."""
+    B, n = 1024, 512
+    a = stack_on_card(seed + 903, B, n, n)
+    b = stack_on_card(seed + 904, B, n, n)
+    c, launched, _, _, peak = batched_stats(lambda: m4.mul_packed_batched(a, b))
+    check(launched["gf2_schur_update_batched_hopper"] == 1,
+          f"mul_packed_batched launched {batch_counts()}")
+    single = torch.stack([mul_packed_data(a[i], b[i]) for i in range(B)])
+    check(torch.equal(c, single), "mul_packed_batched differs from "
+          "mul_packed_data element by element")
+    x = stack_on_card(seed + 905, B, n, 64)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        def prod(p, q):   # packed [B, n, w] x packed [B, n, w'] -> packed
+            pf = unpack_f32(p.reshape(B * n, -1), n).reshape(B, n, n)
+            qf = unpack_f32(q.reshape(B * n, -1), q.shape[2] * 32)
+            return pack_parity(torch.bmm(pf, qf.reshape(B, n, -1)).reshape(
+                B * n, -1)).reshape(B, n, -1)
+        check(torch.equal(prod(c, x), prod(a, prod(b, x))),
+              "Freivalds: C X != A (B X) for the batch")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    t = time_ms(lambda: m4.mul_packed_batched(a, b))
+    tp = time_ms(lambda: m4.mul_packed_batched(a, b, allow_kernel=False),
+                 runs=3, warmup=1)
+    loop = time_ms(lambda: [mul_packed_data(a[i], b[i]) for i in range(B)],
+                   runs=3, warmup=1)
+    emit("batched_mul_512", ok=True, batch=B, shape=[n, n, n], ms=t,
+         plain_ms=tp["median"], calls_per_s=B / t["median"] * 1e3,
+         loop_of_mul_packed_data_ms=loop["median"],
+         batched_over_loop=loop["median"] / t["median"],
+         **roofline(4 * B * 3 * n * (n // 32), b1_ops=2 * B * n ** 3),
+         launches=launched, peak_memory_gb=peak)
+    return launched
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=17)
@@ -2183,6 +2615,7 @@ def main() -> int:
         report.update(phase_schur_kernels(rng))
         report.update(phase_panel_kernel(rng))
         report.update(phase_post_kernel(rng))
+        report.update(phase_batched_kernels(seed))
         launches = {name: 0 for name in KERNELS}
         for got in (phase_mul_4096(seed), phase_mul_routes(seed),
                     phase_strassen(seed), phase_ple_16384(seed),
@@ -2211,6 +2644,14 @@ def main() -> int:
             report[name]["dist_launches"] = dist_total[name]
         emit("multi_device", seconds=dist_s, total_seconds=sum(dist_s.values()),
              launches=dist_total)
+        batch_s = {}
+        for phase in (phase_batched_rank_nist, phase_batched_factor_mceliece,
+                      phase_batched_miss_4096, phase_batched_mul_512,
+                      phase_batched_one):
+            t = time.time()
+            add_counts(launches, phase(seed))
+            batch_s[phase.__name__.removeprefix("phase_")] = time.time() - t
+        emit("batched", seconds=batch_s, total_seconds=sum(batch_s.values()))
         phase_naive_and_golden(seed)
         for name, n in launches.items():
             check(n > 0, f"the main path never launched {name}")
@@ -2225,7 +2666,7 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # what bounds the pivot loop is its chain of steps; bytes go beside it
-    more = ("chain_floor_ms", "bytes_bound_ms", "dist_launches")
+    more = ("chain_floor_ms", "bytes_bound_ms", "dist_launches", "library_note")
     print(json.dumps({"kernels": [
         {**{k: r[k] for k in keys}, **{k: r[k] for k in more if k in r}}
         for r in report.values()]}))

@@ -21,8 +21,10 @@ product (``mul_m4rm`` / ``addmul_m4rm``), DJB linear maps (``djb_compile`` /
 (``native/``), the reference C API by name (``compat``) and the
 multi-device layer (``parallel/``: SUMMA and k-split products, row-sharded
 PLE / rank / echelon, distributed TRSM / solve / invert / kernel on
-``torch.distributed``, with its dry runs in ``dryrun.py``).  Like the JAX
-package, the top level does not export ``parallel``.
+``torch.distributed``, with its dry runs in ``dryrun.py``) and batching
+(``mul_packed_batched`` / ``block_factor_batched`` / ``rank_batched``, what
+the JAX package gets from ``jax.vmap``).  Like the JAX package, the top
+level does not export ``parallel``.
 """
 
 from .core.bitmatrix import (  # noqa: F401
@@ -42,6 +44,9 @@ from .core.transpose import transpose as _transpose
 from .models import echelon as _echelon, ple as _ple_mod, solve as _solve
 from .models import triangular as _triangular
 from .models.echelon import rank  # noqa: F401
+from .models.batched import (  # noqa: F401
+    block_factor_batched, mul_packed_batched, rank_batched,
+)
 from .models.djb import djb_apply, djb_compile  # noqa: F401
 from .models.ple import block_factor  # noqa: F401
 from .ops import m4rm as _m4rm

@@ -12,6 +12,9 @@ from __future__ import annotations
 
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_B1_OPS_PER_S = 8 * 1979e12
+# 32-bit operations outside the tensor cores (an XOR of two words is one):
+# the data sheet's float32 rate, 67 TFLOP/s, for want of an integer one
+PEAK_ALU32_OPS_PER_S = 67e12
 
 
 def schur_bound(m: int, k: int, nw: int, r0: int, c0w: int, skip_words: int = 0) -> dict:

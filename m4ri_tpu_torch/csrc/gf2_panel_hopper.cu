@@ -53,6 +53,10 @@
 //           does not fit beside the tables (above about 48,000 rows).
 // Panel rows in shared memory are one word apart from a multiple of 32 so
 // that threads taking one row each fall on distinct banks.
+// Batched (mode SHARED only): one block a window, the batch on grid x.  Block
+// b takes window b of a contiguous [B, h, 2*nbw] stack, its rank r0[b] and its
+// base base[b] on the card, and writes output b of each stack; a launch of one
+// block is the single-window call.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <initializer_list>
@@ -83,6 +87,7 @@ struct PanelArgs {
   uint32_t* al;
   int *rowperm, *r_out, *touched, *p_out, *q_out;
   const int* r0;
+  const int* base_p;    // batched: one base a window (else null: `base`)
   uint32_t* cnext;      // GRID: the next word column, [h]
   uint32_t* cdev;       // TALL: the chain's word column c[], [h]
   GroupMeta* meta_g;    // GRID: the group's meta for the other blocks
@@ -208,6 +213,18 @@ panel_kernel(PanelArgs a) {
   const int lane = tid & 31, warp = tid >> 5, nwarps = T >> 5;
   const int h = a.h, nbw = a.nbw, w2 = 2 * nbw, nb = nbw * 32;
   const bool chain_block = !kGrid || blockIdx.x == 0;
+  if (!kGrid) {   // window blockIdx.x of a batch (0 for a single window)
+    const long e = blockIdx.x;
+    a.al0 += e * h * w2;
+    a.al += e * h * w2;
+    a.rowperm += e * h;
+    a.r_out += e;
+    a.touched += e * 2 * nb;
+    a.p_out += e * nb;
+    a.q_out += e * nb;
+    if (a.r0) a.r0 += e;
+    if (a.base_p) a.base = a.base_p[e];
+  }
 
   // shared memory: t4[8 * 16, nbw] (first: read 8 bytes at a time) |
   // tab[64, w2] | c[h] (not in TALL mode) | sel_s[T], or in SHARED mode
@@ -596,6 +613,21 @@ inline int panel_mode(int requested, int h, int nbw, int threads) {
   return -1;
 }
 
+// Once a card: the most shared memory a block of each mode may ask for.
+inline cudaError_t allow_kernels(Card* cd) {
+  if (!cd) return cudaErrorInvalidDevice;
+  if (!cd->allowed) {
+    for (auto kernel : {panel_kernel<false, false>, panel_kernel<true, false>,
+                        panel_kernel<true, true>}) {
+      cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, cd->cap - 2048);
+      if (err != cudaSuccess) return err;
+    }
+    cd->allowed = true;
+  }
+  return cudaSuccess;
+}
+
 }  // namespace gf2
 
 // 1 SHARED, 2 GRID, 3 TALL; -1 if `requested` (0 = choose) does not fit.
@@ -633,15 +665,7 @@ extern "C" int gf2_panel_loop_hopper_launch(
   const int mode = panel_mode(requested_mode, h, nbw, threads);
   if (mode < 0) return static_cast<int>(cudaErrorInvalidConfiguration);
   Card* cd = card();
-  if (!cd->allowed) {   // once a card: the most a block may ask for
-    for (auto kernel : {panel_kernel<false, false>, panel_kernel<true, false>,
-                        panel_kernel<true, true>}) {
-      cudaError_t err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, cd->cap - 2048);
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    cd->allowed = true;
-  }
+  if (cudaError_t err = allow_kernels(cd)) return static_cast<int>(err);
   const size_t bytes = panel_smem(mode, h, nbw, threads);
   uint32_t* sc = static_cast<uint32_t*>(scratch);
   PanelArgs a;
@@ -653,6 +677,7 @@ extern "C" int gf2_panel_loop_hopper_launch(
   a.p_out = static_cast<int*>(p_out);
   a.q_out = static_cast<int*>(q_out);
   a.r0 = static_cast<const int*>(r0);
+  a.base_p = nullptr;
   a.cnext = sc;
   a.cdev = sc + h;
   a.meta_g = reinterpret_cast<GroupMeta*>(sc + 2 * (size_t)h);
@@ -674,6 +699,40 @@ extern "C" int gf2_panel_loop_hopper_launch(
         dim3(blocks), dim3(threads), args, bytes, st);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The batched call, mode SHARED only: batch windows, each [h, 2*nbw] words,
+// stacked contiguously in al0; outputs stacked likewise (al, rowperm [B, h],
+// r_out [B], touched [B, 2*nb], p_out, q_out [B, nb]); r0, base: B ints on
+// the card each (r0 >= base, else taken as base).  A window that does not fit
+// mode SHARED is refused (cudaErrorInvalidConfiguration).
+extern "C" int gf2_panel_loop_hopper_batched_launch(
+    const void* al0, void* al, void* rowperm, void* r_out, void* touched,
+    void* p_out, void* q_out, const void* r0, const void* base, int batch,
+    int m, int h, int nbw, int preserve_l, int search_window, void* stream) {
+  using namespace gf2;
+  if (nbw < 1 || nbw > MAX_NBW || h < 1 || batch < 1 || !r0 || !base)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = panel_threads(h);
+  if (panel_mode(kShared, h, nbw, threads) != kShared)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  if (cudaError_t err = allow_kernels(card())) return static_cast<int>(err);
+  PanelArgs a{};
+  a.al0 = static_cast<const uint32_t*>(al0);
+  a.al = static_cast<uint32_t*>(al);
+  a.rowperm = static_cast<int*>(rowperm);
+  a.r_out = static_cast<int*>(r_out);
+  a.touched = static_cast<int*>(touched);
+  a.p_out = static_cast<int*>(p_out);
+  a.q_out = static_cast<int*>(q_out);
+  a.r0 = static_cast<const int*>(r0);
+  a.base_p = static_cast<const int*>(base);
+  a.m = m; a.h = h; a.nbw = nbw; a.preserve_l = preserve_l;
+  a.search_window = search_window; a.row_work = 1;
+  panel_kernel<false, false><<<batch, threads,
+                               panel_smem(kShared, h, nbw, threads),
+                               static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -29,19 +29,33 @@
 
 namespace gf2 {
 
-// grid (nb/32, ld, 2), block (32, 32).  Plane z packs src = z ? W : M:
+// grid (B * nb/32, ld, 2), block (32, 32).  Element e = x / (nb/32), block
+// x' = x % (nb/32) of it.  Plane z packs src = z ? W : M:
 // dst[j, w] bit b = src[32*w + b, j], rows of dst ld >= nb/32 words apart,
-// the words from nb/32 on zero.  Blocks (x, 0, 0) also pack word x of the
-// column mask, and block (0, 0, 0) zeroes the flag.
+// the words from nb/32 on zero.  Blocks (x', 0, 0) also pack word x' of the
+// column mask, and block (0, 0, 0) zeroes the element's flag.  Element e's
+// operands lie e*nb*nb bytes (M, W), e*nb bytes (mask bits), e*tstride words
+// (M^T, W^T), e*cstride words (packed mask) and e bytes (flag) on.
 __global__ void __launch_bounds__(1024)
 post_pack_kernel(const int8_t* __restrict__ m_small,
                  const int8_t* __restrict__ wmat,
                  const int8_t* __restrict__ colmask_bits,
                  uint32_t* __restrict__ mt, uint32_t* __restrict__ wt, long ld,
-                 uint32_t* __restrict__ colmask, unsigned char* miss, int nb) {
+                 uint32_t* __restrict__ colmask, unsigned char* miss, int nb,
+                 long tstride, long cstride) {
   __shared__ int8_t tile[32][33];
+  const int per = nb / 32;
+  const long e = blockIdx.x / per;
+  const int bx = (int)(blockIdx.x - e * per);
+  m_small += e * nb * (long)nb;
+  wmat += e * nb * (long)nb;
+  colmask_bits += e * nb;
+  mt += e * tstride;
+  wt += e * tstride;
+  colmask += e * cstride;
+  miss += e;
   const int lane = threadIdx.x, wr = threadIdx.y;
-  const int j0 = blockIdx.x * 32, w = blockIdx.y;
+  const int j0 = bx * 32, w = blockIdx.y;
   const bool real = w < nb / 32;       // else a padding word of the row
   const int8_t* src = blockIdx.z ? wmat : m_small;
   uint32_t* dst = blockIdx.z ? wt : mt;
@@ -52,21 +66,36 @@ post_pack_kernel(const int8_t* __restrict__ m_small,
   if (blockIdx.z == 0 && blockIdx.y == 0 && wr == 0) {
     const unsigned cm = __ballot_sync(0xffffffffu, colmask_bits[j0 + lane] & 1);
     if (lane == 0) {
-      colmask[blockIdx.x] = cm;
-      if (blockIdx.x == 0) *miss = 0;
+      colmask[bx] = cm;
+      if (bx == 0) *miss = 0;
     }
   }
 }
 
+// grid (B * ceil(m/BM)): element e = x / ceil(m/BM) takes the row tile
+// x % ceil(m/BM) of its panel; below0p, if given, holds one row range start
+// an element.  Strides of element e: bx words (x), bo words (v and lam),
+// tstride (M^T, W^T), cstride (packed mask), 1 byte (flag).
 __global__ void __launch_bounds__(THREADS, 2)
 post_kernel(const uint32_t* __restrict__ x, long ldx, bool vec_x, int m,
             int nbw, const uint32_t* __restrict__ mt,
             const uint32_t* __restrict__ wt, long ldt,
             const uint32_t* __restrict__ colmask, uint32_t* __restrict__ v,
             long ldv, uint32_t* lam, long ldlam, bool vec_lam, unsigned char* miss,
-            int below0, int mvalid) {
+            int below0, int mvalid, const int* __restrict__ below0p, long bx,
+            long bo, long tstride, long cstride) {
   extern __shared__ __align__(16) uint32_t smem[];
-  const int m0 = blockIdx.x * BM;
+  const int per = (m + BM - 1) / BM;
+  const long e = blockIdx.x / per;
+  const int m0 = (int)(blockIdx.x - e * per) * BM;
+  x += e * bx;
+  v += e * bo;
+  lam += e * bo;
+  mt += e * tstride;
+  wt += e * tstride;
+  colmask += e * cstride;
+  miss += e;
+  if (below0p) below0 = below0p[e];
   if (m0 + BM <= below0 || m0 >= mvalid) {   // no row of the tile is in range
     for (int idx = threadIdx.x; idx < BM * nbw; idx += THREADS) {
       const int row = m0 + idx / nbw, w = idx % nbw;
@@ -109,13 +138,17 @@ post_kernel(const uint32_t* __restrict__ x, long ldx, bool vec_x, int m,
 inline cudaError_t launch_pack(const void* m_small, const void* wmat,
                                const void* colmask_bits, uint32_t* mt,
                                uint32_t* wt, long ld, uint32_t* colmask,
-                               void* miss, int nb, cudaStream_t stream) {
-  if (nb < 32 || nb % 32 || ld < nb / 32 || ld > 65535)
+                               void* miss, int nb, cudaStream_t stream,
+                               int batch = 1, long tstride = 0,
+                               long cstride = 0) {
+  if (nb < 32 || nb % 32 || ld < nb / 32 || ld > 65535 || batch < 1 ||
+      (long)batch * (nb / 32) > 0x7fffffffL)
     return cudaErrorInvalidValue;
-  post_pack_kernel<<<dim3(nb / 32, (unsigned)ld, 2), dim3(32, 32), 0, stream>>>(
+  post_pack_kernel<<<dim3((unsigned)(batch * (nb / 32)), (unsigned)ld, 2),
+                     dim3(32, 32), 0, stream>>>(
       static_cast<const int8_t*>(m_small), static_cast<const int8_t*>(wmat),
       static_cast<const int8_t*>(colmask_bits), mt, wt, ld, colmask,
-      static_cast<unsigned char*>(miss), nb);
+      static_cast<unsigned char*>(miss), nb, tstride, cstride);
   return cudaGetLastError();
 }
 
@@ -155,7 +188,44 @@ extern "C" int gf2_panel_post_hopper_launch(
       static_cast<const uint32_t*>(x), ldx, aligned16(x, ldx), m, nbw, mt, wt,
       ld, colmask, static_cast<uint32_t*>(v), (long)nbw,
       static_cast<uint32_t*>(lam), (long)nbw, aligned16(lam, (long)nbw),
-      static_cast<unsigned char*>(miss), below0, mvalid);
+      static_cast<unsigned char*>(miss), below0, mvalid, nullptr, 0, 0, 0, 0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The batched call, two launches: B elements; x: element e at x + e*bx
+// words, its rows ldx apart; m_small, wmat: [B, nb, nb] bytes, colmask_bits
+// [B, nb], contiguous; below0: B ints on the card; scratch: B times
+// gf2_panel_post_scratch_words(nb) words, 16-byte aligned; v, lam: [B, m,
+// nbw] contiguous; miss: B bytes.  Returns cudaGetLastError().
+extern "C" int gf2_panel_post_hopper_batched_launch(
+    const void* x, long ldx, long bx, const void* m_small, const void* wmat,
+    const void* colmask_bits, void* scratch, void* v, void* lam, void* miss,
+    const void* below0, int batch, int m, int nbw, int mvalid, void* stream) {
+  using namespace gf2;
+  const int nb = nbw * 32;
+  const long ld = post_row_words(nb);
+  const long tstride = 2L * nb * ld + (nbw + 3) / 4 * 4;   // one element's
+  const long tiles = (m + BM - 1) / BM;
+  if (batch < 1 || m < 1 || tiles * batch > 0x7fffffffL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  uint32_t* mt = static_cast<uint32_t*>(scratch);
+  uint32_t* wt = mt + (long)nb * ld;
+  uint32_t* colmask = wt + (long)nb * ld;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = launch_pack(m_small, wmat, colmask_bits, mt, wt, ld,
+                                colmask, miss, nb, st, batch, tstride,
+                                tstride);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = allow_smem(post_kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long bo = (long)m * nbw;
+  post_kernel<<<(unsigned)(tiles * batch), THREADS, SMEM_BYTES, st>>>(
+      static_cast<const uint32_t*>(x), ldx, aligned16(x, ldx) && bx % 4 == 0,
+      m, nbw, mt, wt, ld, colmask, static_cast<uint32_t*>(v), (long)nbw,
+      static_cast<uint32_t*>(lam), (long)nbw,
+      aligned16(lam, (long)nbw) && bo % 4 == 0,
+      static_cast<unsigned char*>(miss), 0, mvalid,
+      static_cast<const int*>(below0), bx, bo, tstride, tstride);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -48,6 +48,15 @@
 // (gf2_gemm_hopper.cu) runs at 15,500, is not used here yet.
 // One launch contracts at most KW_MAX words; the wrapper splits a deeper
 // contraction (XOR is associative).
+//
+// Batched entry (BATCH = true): B independent updates C_b ^= Lp_b*Up_b, each
+// operand with its own batch stride, r0 one int per element on the card, c0w
+// one int for all.  The persistent grid walks the concatenation of the
+// elements' active rectangles, element-major: cum[b] is the inclusive prefix
+// sum of the active tiles of elements 0..b, so a block finds its first tile
+// by a binary search over cum and then walks on without a division.  A block
+// reloads its band of Lp when the (element, row tile) pair changes; Up^T is
+// staged one block of tiles an element.
 #include "gf2_sm90.cuh"
 #include "gf2_tile.cuh"
 
@@ -64,13 +73,14 @@ constexpr int GT = 256;          // threads of a group: 8 warps, 4 (rows) x 2
 constexpr int NT = 2 * GT;       // threads of a block
 constexpr int TR_ROWS = 9;       // padded row of the pre-pass's staging
 
-// Bounds: by value, or read on the card where a pointer is given.
+// Bounds: by value, or read on the card where a pointer is given (batched:
+// r0p points to one int an element).
 struct Bounds {
   const int* r0p; const int* c0wp; int r0, c0w;
 };
 
-__device__ __forceinline__ int read_r0(const Bounds& b) {
-  return max(b.r0p ? *b.r0p : b.r0, 0);
+__device__ __forceinline__ int read_r0(const Bounds& b, long elem = 0) {
+  return max(b.r0p ? b.r0p[elem] : b.r0, 0);
 }
 __device__ __forceinline__ int read_c0w(const Bounds& b) {
   return max(b.c0wp ? *b.c0wp : b.c0w, 0);
@@ -110,14 +120,26 @@ __host__ __device__ __forceinline__ int mma_row(int col) {
 // transposed in registers; rows of Up at or beyond k and columns at or
 // beyond nw read as zero.  The block's words start at the edge read on the
 // card, so nothing left of it is read; blocks past the last tile return.
-template <int KS>
+//
+// Batched: grid (B * xb, KS); block x takes element x / xb, and writes that
+// element's tiles from the first active one (j0) on, n_j of them, at
+// ut + element * n_j tiles (tile t at t - j0).
+template <int KS, bool BATCH>
 __global__ void __launch_bounds__(256)
-schur_transpose_kernel(const uint32_t* __restrict__ up, long ldu, int k,
-                       int nw, int tiles_j, Bounds bd, int skip,
+schur_transpose_kernel(const uint32_t* __restrict__ up, long ldu, long bsu,
+                       int k, int nw, int tiles_j, Bounds bd, int skip, int xb,
                        uint32_t* __restrict__ ut) {
   __shared__ uint32_t s[1024 * TR_ROWS];
   constexpr int RW = KS * 8;
-  const int wb = first_col_tile(bd, skip) * TW + blockIdx.x * 32;
+  const int j0 = first_col_tile(bd, skip);
+  int bx = blockIdx.x;
+  if constexpr (BATCH) {
+    const long elem = blockIdx.x / xb;
+    bx = blockIdx.x - (int)(elem * xb);
+    up += elem * bsu;
+    ut += elem * (long)(tiles_j - j0) * TN * RW;
+  }
+  const int wb = j0 * TW + bx * 32;
   if (wb >= tiles_j * TW) return;
   const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
   const int kwi = blockIdx.y * 8 + w;
@@ -138,7 +160,8 @@ schur_transpose_kernel(const uint32_t* __restrict__ up, long ldu, int k,
     const int row = idx >> 3, c = idx & 7;       // row = l*32 + j
     const long col = (long)wb * 32 + row;
     if (col < (long)tiles_j * TN) {
-      const int t = (int)(col / TN), n = mma_row((int)(col % TN));
+      const int t = (int)(col / TN) - (BATCH ? j0 : 0);
+      const int n = mma_row((int)(col % TN));
       const int word = ((int)(blockIdx.y ^ swz<KS>(n)) << 3) + c;
       ut[((long)t * TN + n) * RW + word] =
           s[((row & 31) * 32 + (row >> 5)) * TR_ROWS + c];
@@ -155,7 +178,15 @@ struct Args {
   int tiles_i, tiles_j, skip;
   bool vec_c;                              // 16-byte copies of C allowed
   Bounds bd;
+  // batched only: elements, batch strides of C and Lp in words, and the
+  // inclusive prefix sum of the elements' active tiles
+  int batch; long bsc, bsl; const long long* cum;
 };
+
+// first row tile of element `elem`'s active rectangle
+__device__ __forceinline__ int elem_i0(const Args& a, long elem) {
+  return read_r0(a.bd, elem) / TM;
+}
 
 template <int KS>
 constexpr int smem_bytes() {
@@ -189,13 +220,25 @@ __device__ __forceinline__ void parity_bits(const int (&acc)[2][8][4],
 }
 
 // Tile coordinates of a run, advanced one tile at a time (row-major over
-// the rectangle) so that no division is made per tile.
+// the rectangle; batched, element after element, skipping elements with no
+// active tile) so that no division is made per tile.
+template <bool BATCH>
 struct Walk {
-  int ti, tj;
-  __device__ __forceinline__ Walk(long s, int i0, int j0, int n_j)
-      : ti(i0 + (int)(s / n_j)), tj(j0 + (int)(s % n_j)) {}
-  __device__ __forceinline__ void next(int j0, int tiles_j) {
-    if (++tj == tiles_j) { tj = j0; ++ti; }
+  int b, ti, tj;
+  __device__ __forceinline__ Walk(int b_, long s, int i0, int j0, int n_j)
+      : b(b_), ti(i0 + (int)(s / n_j)), tj(j0 + (int)(s % n_j)) {}
+  __device__ __forceinline__ void next(const Args& a, int j0) {
+    if (++tj == a.tiles_j) {
+      tj = j0;
+      ++ti;
+      if constexpr (BATCH) {
+        if (ti == a.tiles_i) {
+          ++b;
+          while (b < a.batch && a.cum[b] == a.cum[b - 1]) ++b;
+          ti = b < a.batch ? elem_i0(a, b) : 0;
+        }
+      }
+    }
   }
 };
 
@@ -205,7 +248,7 @@ struct Walk {
 // the other is in its epilogue) but share every staged Up^T tile, which
 // halves what the ring reads from L2 against one 128-row band a tile.  A
 // stage is refilled once both groups have arrived on its `empty` barrier.
-template <int KS>
+template <int KS, bool BATCH>
 __global__ void __launch_bounds__(NT, 1) schur_kernel(Args a) {
   extern __shared__ __align__(128) uint32_t smem[];
   constexpr int RW = KS * 8;
@@ -215,19 +258,36 @@ __global__ void __launch_bounds__(NT, 1) schur_kernel(Args a) {
   uint64_t* empty = full + RING;
 
   // the active rectangle and this block's run of it
-  const int i0 = read_r0(a.bd) / TM;
   const int j0 = first_col_tile(a.bd, a.skip);
-  const int n_i = a.tiles_i - i0, n_j = a.tiles_j - j0;
-  const long total = (n_i > 0 && n_j > 0) ? (long)n_i * n_j : 0;
-  const long s0 = total * blockIdx.x / gridDim.x;
+  const int n_j = a.tiles_j - j0;
+  int i0 = 0, b0 = 0;
+  long total;
+  if constexpr (BATCH) {
+    total = n_j > 0 ? (long)a.cum[a.batch - 1] : 0;
+  } else {
+    i0 = read_r0(a.bd) / TM;
+    const int n_i = a.tiles_i - i0;
+    total = (n_i > 0 && n_j > 0) ? (long)n_i * n_j : 0;
+  }
+  long s0 = total * blockIdx.x / gridDim.x;
   const int count = (int)(total * (blockIdx.x + 1) / gridDim.x - s0);
   if (count <= 0) return;
+  if constexpr (BATCH) {   // the element of tile s0: first b with cum[b] > s0
+    int lo = 0, hi = a.batch - 1;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if ((long)a.cum[mid] > s0) hi = mid; else lo = mid + 1;
+    }
+    b0 = lo;
+    s0 -= lo ? (long)a.cum[lo - 1] : 0;
+    i0 = elem_i0(a, lo);
+  }
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int grp = warp >> 3, gt = tid & (GT - 1);
   const int wm = (warp & 7) >> 1, wn = warp & 1, g = lane >> 2, tig = lane & 3;
   uint32_t* cbuf = smem + RING * STAGE + grp * 2 * GM * TW;   // this group's
-  Walk cur(s0, i0, j0, n_j), c_next = cur, b_next = cur;
+  Walk<BATCH> cur(b0, s0, i0, j0, n_j), c_next = cur, b_next = cur;
 
   if (tid == 0) {
     for (int s = 0; s < RING; ++s) {
@@ -242,9 +302,11 @@ __global__ void __launch_bounds__(NT, 1) schur_kernel(Args a) {
     if (i < count) {
       uint64_t* bar = &full[i % RING];
       mbar_expect_tx(bar, STAGE * 4);
-      bulk_load(stage + (i % RING) * STAGE,
-                a.ut + (long)b_next.tj * STAGE, STAGE * 4, bar);
-      b_next.next(j0, a.tiles_j);
+      const long tile = BATCH ? (long)b_next.b * n_j + (b_next.tj - j0)
+                              : (long)b_next.tj;
+      bulk_load(stage + (i % RING) * STAGE, a.ut + tile * STAGE, STAGE * 4,
+                bar);
+      b_next.next(a, j0);
     }
   };
   // the group's half of C tile i into its buffer i & 1: thread gt copies
@@ -254,9 +316,10 @@ __global__ void __launch_bounds__(NT, 1) schur_kernel(Args a) {
   auto load_c = [&](int i) {                     // i in order
     if (i < count) {
       const int row = c_next.ti * TM + grp * GM + cr, w = c_next.tj * TW + cw;
-      c_next.next(j0, a.tiles_j);
+      const uint32_t* ce = a.c + (BATCH ? (long)c_next.b * a.bsc : 0L);
+      c_next.next(a, j0);
       const int valid = row < a.m ? min(max(a.nw - w, 0), 4) : 0;
-      const uint32_t* p = valid ? a.c + (long)row * a.ldc + w : a.c;
+      const uint32_t* p = valid ? ce + (long)row * a.ldc + w : a.c;
       const uint32_t d = smem_addr(cbuf + (i & 1) * GM * TW + cr * TW + cw);
       if (a.vec_c) {
         cp_async16(d, p, valid * 4);
@@ -274,12 +337,15 @@ __global__ void __launch_bounds__(NT, 1) schur_kernel(Args a) {
   load_c(0);
 
   uint32_t af[2][KS][4];                         // this warp's rows of the band
-  int band = -1;
-  for (int i = 0; i < count; ++i, cur.next(j0, a.tiles_j)) {
+  long band = -1;
+  for (int i = 0; i < count; ++i, cur.next(a, j0)) {
     const int ti = cur.ti, tj = cur.tj;
     const int row0 = ti * TM + grp * GM;          // the group's first row
-    if (ti != band) {
-      band = ti;
+    const uint32_t* lpe = a.lp + (BATCH ? (long)cur.b * a.bsl : 0L);
+    uint32_t* ce = a.c + (BATCH ? (long)cur.b * a.bsc : 0L);
+    const long key = BATCH ? (long)cur.b * a.tiles_i + ti : (long)ti;
+    if (key != band) {
+      band = key;
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt) {
         const int row = row0 + wm * 32 + mt * 16 + g;
@@ -290,7 +356,7 @@ __global__ void __launch_bounds__(NT, 1) schur_kernel(Args a) {
           for (int q = 0; q < 4; ++q) {          // lo.x, hi.x, lo.y, hi.y
             const int r = row + 8 * (q & 1), ww = w + (q >> 1);
             af[mt][ks][q] = (r < a.m && ww < a.kwl)
-                                ? __ldg(a.lp + (long)r * a.ldl + ww) : 0u;
+                                ? __ldg(lpe + (long)r * a.ldl + ww) : 0u;
           }
         }
       }
@@ -336,7 +402,7 @@ __global__ void __launch_bounds__(NT, 1) schur_kernel(Args a) {
     const int row = row0 + cr, w = tj * TW + cw;
     if (row < a.m) {
       const uint32_t* src = cs + cr * TW + cw;
-      uint32_t* dst = a.c + (long)row * a.ldc + w;
+      uint32_t* dst = ce + (long)row * a.ldc + w;
       const int valid = min(max(a.nw - w, 0), 4);
       if (a.vec_c && valid == 4) {
         *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
@@ -351,37 +417,41 @@ __global__ void __launch_bounds__(NT, 1) schur_kernel(Args a) {
 // each KS, with the kernel's shared memory allowed on the way: -1 if it
 // cannot be had.  Internal linkage, so that two builds of this file loaded
 // in one process (two trees compared) keep their own.
-static int g_capacity[5];
+static int g_capacity[2][5];
 
-template <int KS>
+template <int KS, bool BATCH>
 int capacity() {
-  int& blocks = g_capacity[KS];
+  int& blocks = g_capacity[BATCH][KS];
   if (!blocks) {
     int dev = 0, sms = 0, per_sm = 0;
     const bool ok =
         cudaGetDevice(&dev) == cudaSuccess &&
         cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) ==
             cudaSuccess &&
-        cudaFuncSetAttribute(schur_kernel<KS>,
+        cudaFuncSetAttribute(schur_kernel<KS, BATCH>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem_bytes<KS>()) == cudaSuccess &&
         cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, schur_kernel<KS>, NT, smem_bytes<KS>()) == cudaSuccess;
+            &per_sm, schur_kernel<KS, BATCH>, NT, smem_bytes<KS>()) ==
+            cudaSuccess;
     blocks = ok && per_sm * sms > 0 ? per_sm * sms : -1;
   }
   return blocks;
 }
 
-template <int KS>
-cudaError_t launch(const Args& a, const uint32_t* up, long ldu, int k,
-                   uint32_t* ut, int j0_host, int blocks, cudaStream_t st) {
-  if (capacity<KS>() < 1) return cudaErrorInvalidConfiguration;
-  const int words = (a.tiles_j - j0_host) * TW;
-  schur_transpose_kernel<KS><<<dim3((words + 31) / 32, KS), 256, 0, st>>>(
-      up, ldu, k, a.nw, a.tiles_j, a.bd, a.skip, ut);
+template <int KS, bool BATCH>
+cudaError_t launch(const Args& a, const uint32_t* up, long ldu, long bsu,
+                   int k, uint32_t* ut, int j0_host, int blocks,
+                   cudaStream_t st) {
+  if (capacity<KS, BATCH>() < 1) return cudaErrorInvalidConfiguration;
+  const int xb = ((a.tiles_j - j0_host) * TW + 31) / 32;
+  const long gx = BATCH ? (long)xb * a.batch : xb;
+  if (gx > 0x7fffffffL) return cudaErrorInvalidConfiguration;
+  schur_transpose_kernel<KS, BATCH><<<dim3((unsigned)gx, KS), 256, 0, st>>>(
+      up, ldu, bsu, k, a.nw, a.tiles_j, a.bd, a.skip, xb, ut);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  schur_kernel<KS><<<blocks, NT, smem_bytes<KS>(), st>>>(a);
+  schur_kernel<KS, BATCH><<<blocks, NT, smem_bytes<KS>(), st>>>(a);
   return cudaGetLastError();
 }
 
@@ -393,10 +463,22 @@ cudaError_t launch(const Args& a, const uint32_t* up, long ldu, int k,
 extern "C" int gf2_schur_hopper_capacity(int ks) {
   using namespace gf2::schur;
   switch (ks) {
-    case 1: return capacity<1>();
-    case 2: return capacity<2>();
-    case 3: return capacity<3>();
-    case 4: return capacity<4>();
+    case 1: return capacity<1, false>();
+    case 2: return capacity<2, false>();
+    case 3: return capacity<3, false>();
+    case 4: return capacity<4, false>();
+  }
+  return -1;
+}
+
+// The same for the batched kernel.
+extern "C" int gf2_schur_hopper_batched_capacity(int ks) {
+  using namespace gf2::schur;
+  switch (ks) {
+    case 1: return capacity<1, true>();
+    case 2: return capacity<2, true>();
+    case 3: return capacity<3, true>();
+    case 4: return capacity<4, true>();
   }
   return -1;
 }
@@ -423,16 +505,54 @@ extern "C" int gf2_schur_hopper_launch(
          static_cast<const uint32_t*>(ut), static_cast<uint32_t*>(c), ldc, m,
          nw, (m + TM - 1) / TM, tiles_j, skip, aligned16(c, ldc),
          Bounds{static_cast<const int*>(r0p), static_cast<const int*>(c0wp),
-                r0, c0w}};
+                r0, c0w}, 1, 0, 0, nullptr};
   const auto* u = static_cast<const uint32_t*>(up);
   auto* t = static_cast<uint32_t*>(ut);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   switch (ks) {
-    case 1: err = launch<1>(a, u, ldu, k, t, j0_host, blocks, st); break;
-    case 2: err = launch<2>(a, u, ldu, k, t, j0_host, blocks, st); break;
-    case 3: err = launch<3>(a, u, ldu, k, t, j0_host, blocks, st); break;
-    case 4: err = launch<4>(a, u, ldu, k, t, j0_host, blocks, st); break;
+    case 1: err = launch<1, false>(a, u, ldu, 0, k, t, j0_host, blocks, st); break;
+    case 2: err = launch<2, false>(a, u, ldu, 0, k, t, j0_host, blocks, st); break;
+    case 3: err = launch<3, false>(a, u, ldu, 0, k, t, j0_host, blocks, st); break;
+    case 4: err = launch<4, false>(a, u, ldu, 0, k, t, j0_host, blocks, st); break;
+  }
+  return static_cast<int>(err);
+}
+
+// The batched update: batch elements, element e at c + e*bsc, lp + e*bsl,
+// up + e*bsu (strides in words, each a shape as above).  r0p: one int an
+// element on the card, or null and r0 for all; c0w for all.  cum: batch
+// long longs on the card, the inclusive prefix sum over elements of
+// max(ceil(m/256) - max(r0_e, 0)/256, 0) * (ceil(nw/8) - j0); j0 =
+// max(c0w/8, 0), < ceil(nw/8).  ut: batch * (ceil(nw/8) - j0) * 256 * 8*ks
+// words, 16-byte aligned.  blocks: the grid, >= 1.
+extern "C" int gf2_schur_hopper_batched_launch(
+    void* c, long ldc, long bsc, const void* lp, long ldl, long bsl, int kwl,
+    const void* up, long ldu, long bsu, int k, void* ut, const void* r0p,
+    const void* cum, int r0, int c0w, int m, int nw, int batch, int ks,
+    int blocks, void* stream) {
+  using namespace gf2;
+  using namespace gf2::schur;
+  const int tiles_j = (nw + TW - 1) / TW;
+  const int j0 = c0w > 0 ? c0w / TW : 0;
+  if (batch < 1 || j0 >= tiles_j || blocks < 1 || kwl > KW_MAX ||
+      (k + 31) / 32 > 8 * ks)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a{static_cast<const uint32_t*>(lp), ldl, kwl,
+         static_cast<const uint32_t*>(ut), static_cast<uint32_t*>(c), ldc, m,
+         nw, (m + TM - 1) / TM, tiles_j, j0,
+         aligned16(c, ldc) && bsc % 4 == 0,
+         Bounds{static_cast<const int*>(r0p), nullptr, r0, c0w}, batch, bsc,
+         bsl, static_cast<const long long*>(cum)};
+  const auto* u = static_cast<const uint32_t*>(up);
+  auto* t = static_cast<uint32_t*>(ut);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (ks) {
+    case 1: err = launch<1, true>(a, u, ldu, bsu, k, t, j0, blocks, st); break;
+    case 2: err = launch<2, true>(a, u, ldu, bsu, k, t, j0, blocks, st); break;
+    case 3: err = launch<3, true>(a, u, ldu, bsu, k, t, j0, blocks, st); break;
+    case 4: err = launch<4, true>(a, u, ldu, bsu, k, t, j0, blocks, st); break;
   }
   return static_cast<int>(err);
 }

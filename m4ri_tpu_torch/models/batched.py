@@ -1,0 +1,243 @@
+"""Batched GF(2) linear algebra: many independent small systems at once.
+
+The JAX package has no module for this.  Its functional ``BitMatrix``
+composes with ``jax.vmap``, and ``tests/test_vmap.py`` pins two batched
+entry points that way: ``jax.vmap`` of ``mul_packed_data(...,
+allow_pallas=False)`` (m4ri_tpu/ops/mul.py:79) and of ``block_factor(...,
+engine="xla")`` (m4ri_tpu/models/ple.py:537) for per-matrix ranks.  The use
+is the cryptanalytic sweep over many small GF(2) systems: the rank test of
+NIST SP 800-22 over 2^20 matrices of 32 x 32, or information-set decoding
+that eliminates one McEliece parity-check matrix per iteration.
+
+``torch.vmap`` can batch the product (``mul_packed_data(allow_kernel=False)``
+is a chain of tensor operations) but not the port's ``block_factor``: its
+sweep reads the rank and the miss flag back once a panel and slices with
+Python ints.  So the batched sweep here is ``_block_factor_impl``
+(models/ple.py) with an explicit leading batch axis:
+
+- every per-matrix offset (the rank at the panel's entry, the window's base,
+  the rank after it) is an int32 ``[B]`` tensor on the device;
+- the W-row windows at ``r_in[b]`` are gathered through one index tensor, and
+  the window's row permutation, the panel write-back and the P/Q commit go
+  back with scatters masked by ``slot < rank_panel[b]`` (the form of the JAX
+  package's ``dynamic_update_slice``);
+- the glue's nb x nb products are batched float32 products under
+  ``exact_float32`` (the JAX package computes them outside any kernel too);
+- the pivot loop, the below-window elimination and the U rows / trailing
+  update run as one batched launch each (``panel_loop_hopper_batched``,
+  ``panel_post_hopper_batched``, ``gf2_schur_update_batched_hopper``);
+- one read-back a panel for the whole batch: how many elements' windows
+  missed.  On a panel where some did, one more read-back gives their indices
+  and ranks, and each of them is redone at full height by the single-matrix
+  pivot loop (modes grid / tall).
+
+Element ``i`` of every result equals, word for word, the single-matrix call
+on element ``i``.  ``block_factor_batched.host_syncs`` and ``.miss_fallbacks``
+count the read-backs and the panels redone at full height.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core.bitmatrix import width_for
+from ..ops.hopper_mul import gf2_mul_plain
+from ..ops.hopper_panel import panel_loop_batched_plain, panel_loop_hopper_batched
+from ..ops.hopper_post import panel_post_batched_plain, panel_post_hopper_batched
+from ..ops.hopper_schur import (gf2_schur_update_batched_hopper,
+                                gf2_schur_update_plain)
+from ..ops.mul import pack_bits, unpack_bits
+from ..utils.config import WORD_BITS, get_config
+from .ple import (ENGINES, _round_up, _unit_upper_inv, panel_consts,
+                  panel_widths, post_operands, run_panel_loop)
+
+__all__ = ["mul_packed_batched", "block_factor_batched", "rank_batched"]
+
+
+def _check_stack(name: str, t: torch.Tensor) -> None:
+    if not isinstance(t, torch.Tensor) or t.dtype != torch.int32 \
+            or t.dim() != 3:
+        raise TypeError(f"{name}: want a 3-D int32 tensor [B, rows, words]")
+
+
+def mul_packed_batched(a: torch.Tensor, b: torch.Tensor,
+                       allow_kernel: bool = True) -> torch.Tensor:
+    """Packed int32 ``[B, m, kw]`` x ``[B, k, nw]`` -> ``[B, m, nw]``: element
+    i is ``mul_packed_data(a[i], b[i])``.  As there, b's padding bits are
+    zero and the contraction runs over a's padded width (``k <= 32*kw``).
+
+    On the card: the batched Schur kernel on a zeroed C with ``r0 = 0`` and
+    ``c0w = 0`` (a contraction deeper than ``KW_MAX`` words in slices).
+    ``allow_kernel=False`` or CPU tensors: one batched float32 product of the
+    unpacked bits (``gf2_mul_plain``), the lowering of the JAX package's
+    vmap."""
+    _check_stack("a", a)
+    _check_stack("b", b)
+    B, m, kw = a.shape
+    if b.shape[0] != B or b.shape[1] > WORD_BITS * kw:
+        raise ValueError(f"a {tuple(a.shape)}, b {tuple(b.shape)}: want "
+                         "[B, m, kw] and [B, k <= 32*kw, nw]")
+    if b.device != a.device:
+        raise ValueError(f"a lies on {a.device}, b on {b.device}")
+    if not (allow_kernel and a.is_cuda):
+        return gf2_mul_plain(a, b)
+    c = torch.zeros((B, m, b.shape[2]), dtype=torch.int32, device=a.device)
+    return gf2_schur_update_batched_hopper(c, a, b, 0, 0)
+
+
+def _rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x[b, idx[b, i]] for every b, i: rows gathered a batch at a time."""
+    return x.gather(1, idx[:, :, None].expand(-1, -1, x.shape[2]))
+
+
+def _put_rows(x: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor) -> None:
+    """x[b, idx[b, i]] = rows[b, i], in place (idx distinct within b)."""
+    x.scatter_(1, idx[:, :, None].expand(-1, -1, x.shape[2]), rows)
+
+
+def _block_factor_batched_impl(data: torch.Tensor, m: int, n: int, nb: int,
+                               preserve_l: bool, window: int, engine: str):
+    if engine not in ENGINES:
+        raise ValueError(f"engine={engine!r}, want one of {ENGINES}")
+    hopper = engine == "hopper"
+    dev = data.device
+    B = data.shape[0]
+    nbw = nb // WORD_BITS
+    W = window
+    # the padding as the single-matrix sweep has it: every gathered window
+    # and U-row block lies inside, and the extra rows never pivot (pos < m)
+    m_pad = _round_up(_round_up(m, nb) + W, 256)
+    n_pad = _round_up(n, nb)
+    w_pad = n_pad // WORD_BITS
+    n_panels = n_pad // nb
+
+    A = torch.zeros((B, m_pad, w_pad), dtype=torch.int32, device=dev)
+    A[:, : data.shape[1], : data.shape[2]] = data
+    P = torch.arange(m_pad, dtype=torch.int32, device=dev).repeat(B, 1)
+    Q = torch.arange(n_pad, dtype=torch.int32, device=dev).repeat(B, 1)
+    consts = panel_consts(nb, dev)
+    slotv, eye_nb, _, steps = consts
+    wv = torch.arange(W, dtype=torch.int32, device=dev)
+    loop = panel_loop_hopper_batched if hopper else panel_loop_batched_plain
+    post = panel_post_hopper_batched if hopper else panel_post_batched_plain
+    schur = (gf2_schur_update_batched_hopper if hopper
+             else lambda c, lp, up, r0, c0w: gf2_schur_update_plain(c, lp, up))
+
+    r = torch.zeros(B, dtype=torch.int32, device=dev)
+    for t in range(n_panels):
+        r_in = r
+        c0w = t * nbw
+        Xw = A[:, :, c0w : c0w + nbw]                  # stale panel words
+        win = (r_in[:, None] + wv[None, :]).long()     # [B, W] window rows
+
+        # ---- fast path: the pivot loop on every element's window ----
+        al0 = torch.cat([_rows(Xw, win), Xw.new_zeros((B, W, nbw))], dim=2)
+        ALw, rpw, r_f, _, p_f, q_f = loop(al0, r_in, r_in, m, nb, preserve_l,
+                                          0)
+
+        # ---- batched elimination of the rows below each window ----
+        live = slotv[None, :] < (r_f - r_in)[:, None]  # [B, nb]
+        m_small, wmat, cmb = post_operands(ALw[:, :nb], live, q_f, t * nb, n,
+                                           preserve_l, consts)
+        vw_full, lamw_full, miss = post(Xw, m_small, wmat, cmb, r_in + W, m)
+
+        # the one read-back of the panel for the whole batch
+        n_missed = int(miss.sum())
+        block_factor_batched.host_syncs += 1
+        fallbacks = []
+        if n_missed:
+            # their indices (a stable sort puts the n_missed flagged ones
+            # first, with no read-back of its own) and ranks: one more
+            # read-back; then each is redone at full height, before A
+            # changes (Xw is a view of it)
+            which = torch.argsort((~miss).to(torch.int8),
+                                  stable=True)[:n_missed]
+            redo = torch.stack([which.to(torch.int32), r_in[which]], 1)
+            block_factor_batched.host_syncs += 1
+            for i, ri in redo.tolist():
+                block_factor_batched.miss_fallbacks += 1
+                fallbacks.append((i, run_panel_loop(
+                    Xw[i], ri, 0, t, m, nb, preserve_l, 0, engine)))
+
+        # ---- commit: the window path for every element that did not miss
+        # (an element that did keeps its rows here and is redone below) ----
+        rpw = torch.where(miss[:, None], wv[None, :], rpw).long()
+        _put_rows(A, win, _rows(_rows(A, win), rpw))
+        panel_full, Lpw = vw_full, lamw_full
+        _put_rows(panel_full, win, ALw[:, :, :nbw])
+        _put_rows(Lpw, win, ALw[:, :, nbw:])
+        p_pan = r_in[:, None] + p_f
+        q_pan = t * nb + q_f
+        r = r_f.clone() if fallbacks else r_f
+        for i, (AL, rp, r_s, _, p_i, q_i) in fallbacks:
+            A[i] = A[i][rp.long()]
+            panel_full[i] = AL[:, :nbw]
+            Lpw[i] = AL[:, nbw:]
+            p_pan[i] = p_i
+            q_pan[i] = q_i
+            r[i] = r_s
+        rank_panel = r - r_in
+        keep = slotv[None, :] < rank_panel[:, None]    # [B, nb]
+        sl = win[:, :nb]
+        P.scatter_(1, sl, torch.where(keep, p_pan, P.gather(1, sl)))
+        Q.scatter_(1, sl, torch.where(keep, q_pan, Q.gather(1, sl)))
+        A[:, :, c0w : c0w + nbw] = panel_full
+
+        if t == n_panels - 1:
+            break                   # no trailing column is left to update
+        # ---- U rows: S_b * A_b[r_b : r_b + nb], words from c0n on ----
+        c0n = (t + 1) * nbw
+        l11 = unpack_bits(_rows(Lpw, sl), torch.int8)
+        s_pk = pack_bits(_unit_upper_inv(l11, eye_nb, steps))
+        a_block = _rows(A, sl)
+        a_block[:, :, :c0n] = 0
+        up = schur(torch.zeros_like(a_block), s_pk, a_block, 0, c0n)
+        up *= keep[:, :, None].to(torch.int32)
+        # ---- trailing update: A ^= Lp * U, in place, rows from r_in[b] to
+        # m (the padding rows below stay zero: no launch touches them) ----
+        schur(A[:, :m], Lpw[:, :m], up, r_in, c0n)
+    return (A[:, :m, : data.shape[2]].contiguous(), P[:, :m].contiguous(),
+            Q[:, :n].contiguous(), r)
+
+
+def block_factor_batched(data: torch.Tensor, ncols: int, preserve_l: bool,
+                         nb: int | None = None, window: int | None = None,
+                         engine: str | None = None):
+    """``block_factor`` of every element of a batch.  ``data``: int32
+    ``[B, m, width_for(ncols)]``, element i a packed m x ncols matrix with
+    zero padding bits.  Returns ``(data [B, m, w], P int32 [B, m], Q int32
+    [B, ncols], r int32 [B])``, the rank on the device.  Element i equals,
+    word for word, ``block_factor(BitMatrix(data[i], ncols), preserve_l, nb,
+    window=window)``: ``nb`` and ``window`` default as there, and ``engine``
+    is "hopper" for a batch on the card (each kernel launches or raises)
+    and "plain" on the CPU."""
+    _check_stack("data", data)
+    B, m, w = data.shape
+    if w != width_for(ncols):
+        raise ValueError(f"data has {w} words a row, {ncols} columns want "
+                         f"{width_for(ncols)}")
+    cfg = get_config()
+    nb, window = panel_widths(m, ncols, nb, window)
+    if engine is None:
+        engine = "hopper" if (cfg.use_hopper_panel and data.is_cuda) \
+            else "plain"
+    if B == 0 or m == 0 or ncols == 0:
+        dev = data.device
+        ar = torch.arange
+        return (data.clone(), ar(m, dtype=torch.int32, device=dev).repeat(B, 1),
+                ar(ncols, dtype=torch.int32, device=dev).repeat(B, 1),
+                torch.zeros(B, dtype=torch.int32, device=dev))
+    return _block_factor_batched_impl(data, m, ncols, nb, preserve_l, window,
+                                      engine)
+
+
+# counted where they happen: read-backs from the device (one a panel, one
+# more on a panel where some element missed) and panels redone at full height
+block_factor_batched.host_syncs = 0
+block_factor_batched.miss_fallbacks = 0
+
+
+def rank_batched(data: torch.Tensor, ncols: int) -> torch.Tensor:
+    """The rank of every element of a batch, int32 ``[B]`` on the device:
+    ``block_factor_batched(data, ncols, preserve_l=False)``'s ``r``."""
+    return block_factor_batched(data, ncols, preserve_l=False)[3]

@@ -84,6 +84,56 @@ def _unit_upper_inv(nilp: torch.Tensor, eye: torch.Tensor, steps: int):
     return s.to(torch.int8)
 
 
+def panel_consts(nb: int, device):
+    """The sweep's constant small tensors, made once a sweep: the slot
+    indices, the nb x nb identity and strict upper triangle (int8), and the
+    number of squarings of ``_unit_upper_inv``."""
+    slotv = torch.arange(nb, dtype=torch.int32, device=device)
+    eye_nb = torch.eye(nb, dtype=torch.int8, device=device)
+    upper = (slotv[None, :] > slotv[:, None]).to(torch.int8)
+    return slotv, eye_nb, upper, max(0, (nb - 1).bit_length() - 1)
+
+
+def post_operands(Pw: torch.Tensor, live: torch.Tensor, qloc: torch.Tensor,
+                  col0: int, n: int, preserve_l: bool, consts,
+                  miss_check: bool = True):
+    """The below-window elimination's small operands from a window's
+    pivot-slot rows, for one window or a batch of them (a leading batch
+    axis ``...`` passes through): ``Pw`` [..., nb, 2nb/32] (the fused rows
+    [panel | L] at the pivot slots), ``live`` bool [..., nb] (slot s holds a
+    pivot), ``qloc`` [..., nb] (its panel column); ``consts`` is
+    ``panel_consts(nb, ...)``.  Returns int8 (m_small = E^T T [..., nb, nb],
+    wmat [..., nb, nb], colmask bits [..., nb]): E the one-hot pivot-column
+    rows, T the inverse of U restricted to its pivot columns, the column
+    mask the valid columns (panel column ``col0`` on, below ``n``) that hold
+    no pivot, or none without ``miss_check``."""
+    nbw = Pw.shape[-2] // WORD_BITS
+    slotv, eye_nb, upper, steps = consts
+    live8 = live.to(torch.int8)[..., None]
+    cloc = torch.where(live, qloc, 0)
+    urows = unpack_bits(Pw[..., :nbw], torch.int8) * live8
+    # one-hot pivot-column rows: E[s] = e_{cloc[s]}
+    E = ((cloc[..., None] == slotv) & live[..., None]).to(torch.int8)
+    Et = E.transpose(-1, -2)
+    if preserve_l:
+        # the in-place pivot rows carry their own L multipliers at the
+        # *earlier* pivot columns; clear them to get the clean U rows
+        Lbits = unpack_bits(Pw[..., nbw:], torch.int8)
+        u_clean = (urows ^ _dot2(Lbits, E)) * live8
+    else:
+        u_clean = urows
+    # U restricted to its pivot columns, in slot space: unit upper tri
+    T = _unit_upper_inv(_dot2(u_clean, Et) * upper, eye_nb, steps)
+    # multipliers for every row below the window: lambda = X (E^T T);
+    # eliminated panel values v = X ^ lambda wmat (preserve_l re-places
+    # lambda at the pivot columns, the reference's in-place L layout)
+    wmat = (u_clean ^ E) if preserve_l else u_clean
+    validcol = (col0 + slotv) < n
+    cmb = (~E.any(dim=-2) & validcol) if miss_check else \
+        torch.zeros_like(live)
+    return _dot2(Et, T), wmat, cmb.to(torch.int8)
+
+
 def run_panel_loop(panel_words: torch.Tensor, r, base: int, t: int, m: int,
                    nb: int, preserve_l: bool, search_window: int, engine: str):
     """The canonical nb-column pivot loop on an h-row window (row 0 at
@@ -141,10 +191,8 @@ def _block_factor_impl(data: torch.Tensor, m: int, n: int, nb: int,
     A[: data.shape[0], : data.shape[1]] = data
     P = torch.arange(m_pad, dtype=torch.int32, device=dev)
     Q = torch.arange(n_pad, dtype=torch.int32, device=dev)
-    eye_nb = torch.eye(nb, dtype=torch.int8, device=dev)
-    slotv = torch.arange(nb, dtype=torch.int32, device=dev)
-    upper = (slotv[None, :] > slotv[:, None]).to(torch.int8)
-    steps = max(0, (nb - 1).bit_length() - 1)
+    consts = panel_consts(nb, dev)
+    slotv, eye_nb, _, steps = consts
     post = panel_post_hopper if hopper else panel_post_plain
     tiles_j = -(-w_pad // TILE_WORDS)
     dyn = dyn_skip and m_pad % TILE_ROWS == 0 and w_pad % TILE_WORDS == 0
@@ -166,35 +214,13 @@ def _block_factor_impl(data: torch.Tensor, m: int, n: int, nb: int,
 
         # ---- batched elimination of the rows below the window ----
         live = slotv < r_f - r_in
-        live8 = live.to(torch.int8)[:, None]
-        cloc = torch.where(live, q_f - t * nb, 0)       # local pivot columns
-        Pw = ALw[:nb]                                   # pivot-slot rows
-        urows = unpack_bits(Pw[:, :nbw], torch.int8) * live8
-        # one-hot pivot-column rows: E[s] = e_{cloc[s]}
-        E = ((cloc[:, None] == slotv[None, :]) & live[:, None]).to(torch.int8)
-        if preserve_l:
-            # the in-place pivot rows carry their own L multipliers at the
-            # *earlier* pivot columns; clear them to get the clean U rows
-            Lbits = unpack_bits(Pw[:, nbw:], torch.int8)
-            u_clean = (urows ^ _dot2(Lbits, E)) * live8
-        else:
-            u_clean = urows
-        # U restricted to its pivot columns, in slot space: unit upper tri
-        upiv = _dot2(u_clean, E.T)
-        T = _unit_upper_inv(upiv * upper, eye_nb, steps)   # U_piv^{-1}
-        # multipliers for every row below the window: lambda = X (E^T T);
-        # eliminated panel values v = X ^ lambda wmat (preserve_l re-places
-        # lambda at the pivot columns, the reference's in-place L layout)
-        wmat = (u_clean ^ E) if preserve_l else u_clean
-        pivcol = E.any(dim=0)
-        validcol = (t * nb + slotv) < n
         # search_window: restricted search never pivots outside the window
         # by construction (r + search_window <= r_in + W), so a bare
         # below-window 1 is legitimate and the miss check is disabled.
-        cmb = (torch.zeros(nb, dtype=torch.int8, device=dev) if search_window
-               else (~pivcol & validcol).to(torch.int8))
-        vw_full, lamw_full, miss = post(Xw, _dot2(E.T, T), wmat, cmb,
-                                        r_in + W, m)
+        m_small, wmat, cmb = post_operands(
+            ALw[:nb], live, q_f - t * nb, t * nb, n, preserve_l, consts,
+            not search_window)
+        vw_full, lamw_full, miss = post(Xw, m_small, wmat, cmb, r_in + W, m)
 
         # the one read-back of the panel: the window's rank and the miss flag
         r_fast, missed = torch.stack(
@@ -250,6 +276,27 @@ def _block_factor_impl(data: torch.Tensor, m: int, n: int, nb: int,
             Q[:n].contiguous(), r)
 
 
+def panel_widths(nrows: int, ncols: int, nb: int | None = None,
+                 window: int | None = None, search_window: int = 0):
+    """(nb, window) of the sweep: the configured panel width (the wide one
+    from ``panel_width_big_min`` on), cut to the matrix, and its window."""
+    cfg = get_config()
+    big = min(nrows, ncols) >= cfg.panel_width_big_min
+    nb_default = nb is None
+    if nb_default:
+        nb = cfg.panel_width_big if big else cfg.panel_width
+    nb = max(WORD_BITS, _round_up(min(nb, max(WORD_BITS, ncols)), WORD_BITS))
+    if window is None:
+        if nb_default:
+            window = cfg.panel_window_big if big else cfg.panel_window
+        else:
+            # keep the 64-row search margin over a caller nb
+            window = nb + (cfg.panel_window - cfg.panel_width)
+    # no point in a window taller than the padded matrix; never shorter
+    # than the panel (all pivot slots) plus any restricted-search depth
+    return nb, max(min(window, _round_up(nrows, nb)), nb + search_window)
+
+
 def block_factor(a: BitMatrix, preserve_l: bool, nb: int | None = None,
                  search_window: int = 0, window: int | None = None,
                  engine: str | None = None):
@@ -264,20 +311,7 @@ def block_factor(a: BitMatrix, preserve_l: bool, nb: int | None = None,
     same wrappers run their plain versions) or "plain" (plain PyTorch
     everywhere; the default for a matrix on the CPU)."""
     cfg = get_config()
-    big = min(a.nrows, a.ncols) >= cfg.panel_width_big_min
-    nb_default = nb is None
-    if nb_default:
-        nb = cfg.panel_width_big if big else cfg.panel_width
-    nb = max(WORD_BITS, _round_up(min(nb, max(WORD_BITS, a.ncols)), WORD_BITS))
-    if window is None:
-        if nb_default:
-            window = cfg.panel_window_big if big else cfg.panel_window
-        else:
-            # keep the 64-row search margin over a caller nb
-            window = nb + (cfg.panel_window - cfg.panel_width)
-    # no point in a window taller than the padded matrix; never shorter
-    # than the panel (all pivot slots) plus any restricted-search depth
-    window = max(min(window, _round_up(a.nrows, nb)), nb + search_window)
+    nb, window = panel_widths(a.nrows, a.ncols, nb, window, search_window)
     if engine is None:
         engine = "hopper" if (cfg.use_hopper_panel and a.data.is_cuda) \
             else "plain"

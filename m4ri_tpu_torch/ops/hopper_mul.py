@@ -54,10 +54,12 @@ _I32 = torch.int32
 def gf2_mul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """The same function in plain PyTorch: unpack to 0/1 float32, one
     ``torch.matmul`` (in full float32: TF32 would keep about 10 bits of
-    each count and corrupt the parity), parity, pack."""
+    each count and corrupt the parity), parity, pack.  With a leading batch
+    axis ([B, m, kw] x [B, k, nw]) one batched product, the lowering of
+    ``jax.vmap`` over the JAX package's ``mul_packed_data``."""
     from .mul import exact_float32, pack_bits, unpack_bits
-    k = b.shape[0]
-    a_u = unpack_bits(a, torch.float32)[:, :k]
+    k = b.shape[-2]
+    a_u = unpack_bits(a, torch.float32)[..., :k]
     b_u = unpack_bits(b, torch.float32)
     with exact_float32():
         prod = a_u @ b_u

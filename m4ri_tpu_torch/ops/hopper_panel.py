@@ -25,6 +25,14 @@ int below it raises, a device value below it is taken as ``base``.
 The plain version runs ``colstep`` nb times with tensor operations only (no
 value is read back to the host); it is also the engine on the CPU.
 ``panel_loop_grouped_plain`` is the same function in the kernel's schedule.
+
+``panel_loop_hopper_batched`` runs a batch of windows ``al0 [B, h, 2*nb/32]``
+at once, each with its own rank ``r0[b]`` and base ``base[b]`` (int32 tensors
+on the card): mode "shared" only, one block a window, the batch the grid;
+a window that does not fit mode shared is refused.  It returns the outputs
+of the single call stacked along a leading batch axis.
+``panel_loop_batched_plain`` is its plain version: the nb column steps, each
+a few tensor operations for the whole batch.
 """
 
 from __future__ import annotations
@@ -38,7 +46,8 @@ import torch
 from ..utils.config import WORD_BITS
 
 __all__ = ["panel_loop_hopper", "panel_loop_plain",
-           "panel_loop_grouped_plain", "MODES"]
+           "panel_loop_grouped_plain", "panel_loop_hopper_batched",
+           "panel_loop_batched_plain", "MODES"]
 
 # one block; a cooperative grid; the grid with the word column in scratch
 MODES = {1: "shared", 2: "grid", 3: "tall"}
@@ -76,6 +85,12 @@ def _check(al0: torch.Tensor, nb: int) -> None:
                          f"{2 * (nb // WORD_BITS)}]")
     if nb // WORD_BITS > _MAX_NBW:
         raise ValueError(f"nb={nb} exceeds {_MAX_NBW * WORD_BITS} columns")
+
+
+def _check_batch(al0: torch.Tensor, nb: int) -> None:
+    if al0.shape[0] < 1:
+        raise ValueError("al0: an empty batch")
+    _check(al0[0], nb)
 
 
 def _scalar(x, device) -> torch.Tensor:
@@ -125,6 +140,61 @@ def panel_loop_plain(al0: torch.Tensor, r0, base: int, m: int, nb: int,
         elim_row = (rows[1] & wmask[j]) | lbit[slot][0]
         elim = (col == 1) & (pos > r) & found
         AL ^= torch.where(elim[:, None], elim_row[None, :], 0)
+        r = r + found.to(torch.int32)
+    return AL, rowperm, r, touched, p_pan, q_pan
+
+
+def panel_loop_batched_plain(al0: torch.Tensor, r0: torch.Tensor,
+                             base: torch.Tensor, m: int, nb: int,
+                             preserve_l: bool, search_window: int = 0):
+    """``panel_loop_plain`` over a leading batch axis, vectorised: window b
+    (``al0[b]``, row 0 at global position ``base[b]``) starts from rank
+    ``r0[b]``; every step is one masked min, one two-row swap and one
+    outer-product XOR for the whole batch.  Returns the single call's
+    outputs stacked: (AL [B, h, 2nbw], rowperm [B, h], r [B], touched
+    [B, 2nb], p [B, nb], q [B, nb])."""
+    if al0.dim() != 3:
+        raise TypeError(f"al0: want a 3-D int32 tensor, got {al0.dim()} dims")
+    B, h, w2 = al0.shape
+    _check_batch(al0, nb)
+    dev = al0.device
+    wmask_np, lbit_np = _tables(nb, bool(preserve_l))
+    wmask, lbit = (torch.from_numpy(t).to(dev) for t in (wmask_np, lbit_np))
+    AL = al0.clone()
+    idx = torch.arange(h, dtype=torch.int32, device=dev)
+    base = base.to(device=dev, dtype=torch.int32)
+    pos = base[:, None] + idx[None, :]                       # [B, h]
+    rowperm = idx.repeat(B, 1)
+    touched = torch.zeros((B, 2 * nb), dtype=torch.int32, device=dev)
+    p_pan = torch.zeros((B, nb), dtype=torch.int32, device=dev)
+    q_pan = torch.zeros((B, nb), dtype=torch.int32, device=dev)
+    r_in = r0.to(device=dev, dtype=torch.int32)
+    r = r_in.clone()
+    for j in range(nb):
+        wloc, sh = divmod(j, WORD_BITS)
+        col = (AL[:, :, wloc] >> sh) & 1                     # [B, h]
+        cand = (col == 1) & (pos >= r[:, None]) & (pos < m)
+        if search_window:
+            cand = cand & (pos < (r + search_window)[:, None])
+        first = torch.where(cand, idx[None, :], h).min(dim=1).values
+        found = first < h
+        rs = torch.clamp(r - base, min=0, max=h - 1)
+        ps = torch.where(found, first, rs)
+        pair = torch.stack([rs, ps], dim=1).long()           # [B, 2]
+        pair_w = pair[:, :, None].expand(B, 2, w2)
+        rows = AL.gather(1, pair_w)
+        perm, bits = rowperm.gather(1, pair), col.gather(1, pair)
+        back = pair.flip(1)          # rs == ps writes a row twice, the same
+        AL.scatter_(1, back[:, :, None].expand(B, 2, w2), rows)
+        rowperm.scatter_(1, back, perm)
+        col.scatter_(1, back, bits)                          # after the swap
+        touched[:, 2 * j:2 * j + 2] = pair.to(torch.int32)
+        slot = (r - r_in).long()[:, None]                    # 0 <= slot <= j
+        p_pan.scatter_(1, slot, ps[:, None])
+        q_pan.scatter_(1, slot, torch.full_like(ps[:, None], j))
+        elim_row = (rows[:, 1] & wmask[j]) | lbit[slot[:, 0]]
+        elim = (col == 1) & (pos > r[:, None]) & found[:, None]
+        AL ^= torch.where(elim[:, :, None], elim_row[:, None, :], 0)
         r = r + found.to(torch.int32)
     return AL, rowperm, r, touched, p_pan, q_pan
 
@@ -254,9 +324,12 @@ def _fns():
     scratch.argtypes = [_INT] * 2
     floor.argtypes = [_INT, _INT, _VOID, _VOID]
     threads.argtypes = [_INT]
+    batched = lib.gf2_panel_loop_hopper_batched_launch
+    batched.argtypes = [_VOID] * 9 + [_INT] * 6 + [_VOID]
     launch.restype = mode.restype = floor.restype = threads.restype = _INT
+    batched.restype = _INT
     scratch.restype = _LONG
-    return launch, mode, scratch, floor, threads
+    return launch, mode, scratch, floor, threads, batched
 
 
 def window_mode(h: int, nb: int, mode: int = 0) -> str:
@@ -341,4 +414,53 @@ def panel_loop_hopper(al0: torch.Tensor, r0, base: int, m: int, nb: int,
     return _launch(al0, r0, base, m, nb, preserve_l, search_window)
 
 
+def panel_loop_hopper_batched(al0: torch.Tensor, r0: torch.Tensor,
+                              base: torch.Tensor, m: int, nb: int,
+                              preserve_l: bool, search_window: int = 0):
+    """The pivot loop on a batch of fused windows; see the module text.
+    ``r0`` and ``base``: int32 tensors ``[B]`` on al0's device (``r0 >=
+    base`` is the contract; a value below is taken as the base).  CPU
+    tensors take the plain version; CUDA tensors launch the kernel (mode
+    shared) or raise."""
+    if al0.dtype != torch.int32 or al0.dim() != 3:
+        raise TypeError(f"al0: want a 3-D int32 tensor, got {al0.dtype} with "
+                        f"{al0.dim()} dims")
+    B, h, w2 = al0.shape
+    _check_batch(al0, nb)
+    for name, t in (("r0", r0), ("base", base)):
+        if not isinstance(t, torch.Tensor) or tuple(t.shape) != (B,):
+            raise TypeError(f"{name}: want a tensor of shape ({B},)")
+        if t.device != al0.device:
+            raise ValueError(f"{name} lies on {t.device}, al0 on {al0.device}")
+    if not al0.is_cuda:
+        return panel_loop_batched_plain(al0, r0, base, m, nb, preserve_l,
+                                        search_window)
+    dev = al0.device
+    al0 = al0.contiguous()
+    r0, base = (t.to(torch.int32).contiguous() for t in (r0, base))
+    sizes = (B * h * w2, B * h, B, B * 2 * nb, B * nb, B * nb)
+    offs = [0]
+    for n in sizes:
+        offs.append(offs[-1] + n)
+    buf = torch.empty(offs[-1], dtype=torch.int32, device=dev)
+    al = buf.as_strided((B, h, w2), (h * w2, w2, 1), 0)
+    rowperm = buf.as_strided((B, h), (h, 1), offs[1])
+    r_out = buf.as_strided((B,), (1,), offs[2])
+    touched = buf.as_strided((B, 2 * nb), (2 * nb, 1), offs[3])
+    p_pan = buf.as_strided((B, nb), (nb, 1), offs[4])
+    q_pan = buf.as_strided((B, nb), (nb, 1), offs[5])
+    ptr = [buf.data_ptr() + 4 * o for o in offs]
+    with torch.cuda.device(dev):
+        err = _fns()[5](al0.data_ptr(), ptr[0], ptr[1], ptr[2], ptr[3],
+                        ptr[4], ptr[5], r0.data_ptr(), base.data_ptr(), B, m,
+                        h, nb // WORD_BITS, int(bool(preserve_l)),
+                        search_window, torch.cuda.current_stream().cuda_stream)
+    panel_loop_hopper_batched.launches += 1
+    if err:
+        raise RuntimeError(f"panel_loop_hopper_batched: CUDA error {err} at "
+                           f"launch (B={B}, h={h}, nb={nb}; mode shared only)")
+    return al, rowperm, r_out, touched, p_pan, q_pan
+
+
 panel_loop_hopper.launches = 0
+panel_loop_hopper_batched.launches = 0

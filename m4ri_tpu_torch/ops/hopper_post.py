@@ -20,6 +20,13 @@ of a right operand of the 1-bit MMA: a packing kernel of the same source
 makes them, the packed column mask and the zeroed flag in one launch ahead
 of it, so that a call is two launches (``_packed_transposed`` and
 ``_packed_colmask`` are that kernel's plain versions).
+
+``panel_post_hopper_batched`` is the same function over a batch of panels:
+``xw [B, m, nb/32]``, ``m_small`` / ``wmat [B, nb, nb]``, ``colmask_bits
+[B, nb]``, ``below0`` one int32 an element on the card, ``mvalid`` shared;
+it returns ``(vw [B], lamw [B], miss bool [B])``.  The same two kernels run
+it, the batch folded into the grid's x.  ``panel_post_batched_plain`` is its
+plain version, vectorised over the batch.
 """
 
 from __future__ import annotations
@@ -32,7 +39,8 @@ import torch
 from ..utils.config import WORD_BITS
 from .mul import _dot_parity, pack_bits, unpack_bits
 
-__all__ = ["panel_post_hopper", "panel_post_plain", "pack_operands_hopper"]
+__all__ = ["panel_post_hopper", "panel_post_plain", "pack_operands_hopper",
+           "panel_post_hopper_batched", "panel_post_batched_plain"]
 
 _MAX_GRID_X = 2**31 - 1
 _TILE_ROWS = 128  # BM of csrc/gf2_tile.cuh
@@ -86,8 +94,10 @@ def _fns():
     pack.argtypes = [_VOID] * 5 + [_LONG, _VOID, _VOID, _INT, _VOID]
     scratch = lib.gf2_panel_post_scratch_words
     scratch.argtypes, scratch.restype = [_INT], _LONG
-    post.restype = pack.restype = _INT
-    return post, pack, scratch
+    bpost = lib.gf2_panel_post_hopper_batched_launch
+    bpost.argtypes = [_VOID, _LONG, _LONG] + [_VOID] * 8 + [_INT] * 4 + [_VOID]
+    post.restype = pack.restype = bpost.restype = _INT
+    return post, pack, scratch, bpost
 
 
 def _row_words(nb: int) -> int:
@@ -178,4 +188,87 @@ def panel_post_hopper(xw: torch.Tensor, m_small: torch.Tensor,
     return vw, lamw, miss
 
 
+def _check_batched(xw, m_small, wmat, colmask_bits, below0) -> None:
+    if xw.dtype != torch.int32 or xw.ndim != 3:
+        raise TypeError(f"xw: want a 3-D int32 tensor, got {xw.dtype} with "
+                        f"{xw.ndim} dims")
+    B, m, nbw = xw.shape
+    nb = nbw * WORD_BITS
+    if nbw > 1 and xw.stride(2) != 1:
+        raise ValueError("xw: the words of a row must be adjacent")
+    for name, t, shape in (("m_small", m_small, (B, nb, nb)),
+                           ("wmat", wmat, (B, nb, nb)),
+                           ("colmask_bits", colmask_bits, (B, nb))):
+        if t.dtype != torch.int8 or tuple(t.shape) != shape:
+            raise TypeError(f"{name}: want int8 {shape}, got {t.dtype} "
+                            f"{tuple(t.shape)}")
+        if t.device != xw.device:
+            raise ValueError(f"{name} lies on {t.device}, xw on {xw.device}")
+    if not isinstance(below0, torch.Tensor) or tuple(below0.shape) != (B,):
+        raise TypeError(f"below0: want a tensor of shape ({B},)")
+    if below0.device != xw.device:
+        raise ValueError(f"below0 lies on {below0.device}, xw on {xw.device}")
+    if B * -(-m // _TILE_ROWS) > _MAX_GRID_X:
+        raise ValueError(f"{B} x {m} rows exceed the launch grid")
+
+
+def panel_post_batched_plain(xw: torch.Tensor, m_small: torch.Tensor,
+                             wmat: torch.Tensor, colmask_bits: torch.Tensor,
+                             below0: torch.Tensor, mvalid: int):
+    """The batched function in plain PyTorch, each step one tensor
+    operation for the whole batch: unpack, two batched products with
+    parity, pack, reduce each element's flag."""
+    _check_batched(xw, m_small, wmat, colmask_bits, below0)
+    B, m, nbw = xw.shape
+    pos = torch.arange(m, device=xw.device)
+    rows = ((pos[None, :] >= below0[:, None]) & (pos[None, :] < mvalid))
+    lamw = torch.where(rows[:, :, None],
+                       _dot_parity(unpack_bits(xw), m_small.to(torch.float32)), 0)
+    vw = xw ^ _dot_parity(unpack_bits(lamw), wmat.to(torch.float32))
+    colmask = pack_bits(colmask_bits.to(torch.int32))            # [B, nbw]
+    miss = (torch.where(rows[:, :, None], vw & colmask[:, None, :], 0)
+            != 0).flatten(1).any(dim=1)
+    return vw, lamw, miss
+
+
+def panel_post_hopper_batched(xw: torch.Tensor, m_small: torch.Tensor,
+                              wmat: torch.Tensor, colmask_bits: torch.Tensor,
+                              below0: torch.Tensor, mvalid: int):
+    """The fused elimination of every panel of a batch, in one call of two
+    launches.  ``xw`` may be a view with any row and batch stride.  CPU
+    tensors take the plain version; CUDA tensors launch the kernels or
+    raise."""
+    _check_batched(xw, m_small, wmat, colmask_bits, below0)
+    if not xw.is_cuda:
+        return panel_post_batched_plain(xw, m_small, wmat, colmask_bits,
+                                        below0, mvalid)
+    B, m, nbw = xw.shape
+    dev = xw.device
+    body = (B * m * nbw + 3) // 4 * 4       # keeps every part 16-byte aligned
+    buf = torch.empty(2 * body + B * _scratch_words(nbw * WORD_BITS),
+                      dtype=torch.int32, device=dev)
+    vw = buf.as_strided((B, m, nbw), (m * nbw, nbw, 1), 0)
+    lamw = buf.as_strided((B, m, nbw), (m * nbw, nbw, 1), body)
+    miss = torch.empty(B, dtype=torch.bool, device=dev)
+    if m == 0 or nbw == 0:
+        return vw, lamw, miss.zero_()
+    m_small, wmat, colmask_bits = (t.contiguous()       # no copy if dense
+                                   for t in (m_small, wmat, colmask_bits))
+    below0 = below0.to(torch.int32).contiguous()
+    base = buf.data_ptr()
+    with torch.cuda.device(dev):
+        err = _fns()[3](xw.data_ptr(), xw.stride(1), xw.stride(0),
+                        m_small.data_ptr(), wmat.data_ptr(),
+                        colmask_bits.data_ptr(), base + 8 * body, base,
+                        base + 4 * body, miss.data_ptr(), below0.data_ptr(),
+                        B, m, nbw, int(mvalid),
+                        torch.cuda.current_stream().cuda_stream)
+    panel_post_hopper_batched.launches += 1
+    if err:
+        raise RuntimeError(f"panel_post_hopper_batched: CUDA error {err} at "
+                           "launch")
+    return vw, lamw, miss
+
+
 panel_post_hopper.launches = 0
+panel_post_hopper_batched.launches = 0

@@ -29,6 +29,15 @@ of at most that depth (XOR is associative).
 
 Both update ``c`` in place and return it.  Strides are passed through: c,
 lp and up may be views with any row stride, the words of a row adjacent.
+
+``gf2_schur_update_batched_hopper`` is the same update over a batch axis,
+``c[b] ^= lp[b]*up[b]`` for each element, with ``r0`` an int or one int32 a
+element on the card and ``c0w`` an int.  One launch (one for each KW_MAX
+words of contraction) runs a persistent grid over the concatenation of the
+elements' active rectangles (``schur_schedule_batched_plain`` is that
+partition in numpy); batch strides are passed through.
+``gf2_schur_update_plain`` on the stacks is its plain version: one batched
+product for the whole batch, no loop over it.
 """
 
 from __future__ import annotations
@@ -44,6 +53,7 @@ from .hopper_mul import check_operands, gf2_mul_plain
 
 __all__ = ["gf2_schur_update_hopper", "gf2_schur_update_dyn_hopper",
            "gf2_schur_update_plain", "schur_schedule_plain", "grid_blocks",
+           "gf2_schur_update_batched_hopper", "schur_schedule_batched_plain",
            "TILE_ROWS", "TILE_WORDS", "KW_MAX"]
 
 TILE_ROWS = 256   # TM of csrc/gf2_schur_hopper.cu
@@ -56,7 +66,9 @@ def gf2_schur_update_plain(c: torch.Tensor, lp: torch.Tensor,
                            up: torch.Tensor) -> torch.Tensor:
     """The same function in plain PyTorch, in place: the whole product is
     formed and XORed in.  Under the contract the tiles a kernel skips have a
-    zero delta, so no bound is needed here."""
+    zero delta, so no bound is needed here.  With a leading batch axis it is
+    the batched kernel's plain version: one batched product for the whole
+    batch."""
     c ^= gf2_mul_plain(lp, up)
     return c
 
@@ -103,13 +115,55 @@ def schur_schedule_plain(m: int, nw: int, r0: int, c0w: int, skip: int,
     return out
 
 
+def _batched_cum(m: int, nw: int, r0, c0w: int, B: int, device):
+    """The inclusive prefix sum over the batch of each element's active
+    tiles (int64 [B] on ``device``), the array the batched kernel's blocks
+    search: rows from max(r0_e, 0) // TILE_ROWS, column tiles from
+    max(c0w, 0) // TILE_WORDS.  ``r0``: an int, or an int tensor [B]."""
+    tiles_i, tiles_j = _tiles(m, nw)
+    n_j = max(tiles_j - max(c0w, 0) // TILE_WORDS, 0)
+    if isinstance(r0, torch.Tensor):
+        r0 = r0.to(device=device, dtype=torch.int64)
+    else:
+        r0 = torch.full((B,), int(r0), dtype=torch.int64, device=device)
+    i0 = r0.clamp(min=0) // TILE_ROWS
+    return torch.cumsum((tiles_i - i0).clamp(min=0) * n_j, 0)
+
+
+def schur_schedule_batched_plain(m: int, nw: int, r0s, c0w: int,
+                                 blocks: int) -> list:
+    """The batched kernel's schedule in numpy: for each of ``blocks`` blocks
+    the (element, row tile, column tile) triples it takes, in order.  The
+    active tiles of all elements are counted element after element (the
+    wrapper's ``_batched_cum``), each element's row-major over its
+    rectangle; block b takes [T*b // blocks, T*(b+1) // blocks) of the T of
+    them."""
+    r0s = np.asarray(r0s, np.int64)
+    cum = _batched_cum(m, nw, torch.from_numpy(r0s), c0w, len(r0s),
+                       "cpu").numpy()
+    cnt = np.diff(cum, prepend=0)
+    tiles_j = _tiles(m, nw)[1]
+    j0 = max(c0w, 0) // TILE_WORDS
+    n_j = max(tiles_j - j0, 1)
+    i0 = np.maximum(r0s, 0) // TILE_ROWS
+    total = int(cum[-1]) if len(cum) else 0
+    out = []
+    for b in range(blocks):
+        s = np.arange(total * b // blocks, total * (b + 1) // blocks)
+        e = np.searchsorted(cum, s, side="right")
+        loc = s - (cum[e] - cnt[e])
+        out.append(np.stack([e, i0[e] + loc // n_j, j0 + loc % n_j], axis=1))
+    return out
+
+
 def _slices(lp: torch.Tensor, up: torch.Tensor):
     """(lp, up, k-steps) of each launch: the contraction KW_MAX words at a
-    time, views of the operands; words of lp past up's rows are left out."""
-    kwords = -(-up.shape[0] // WORD_BITS)
+    time, views of the operands (any leading batch axis kept); words of lp
+    past up's rows are left out."""
+    kwords = -(-up.shape[-2] // WORD_BITS)
     for w0 in range(0, kwords, KW_MAX):
-        ups = up[w0 * WORD_BITS:(w0 + KW_MAX) * WORD_BITS]
-        yield lp[:, w0:w0 + KW_MAX], ups, -(-ups.shape[0] // 256)
+        ups = up[..., w0 * WORD_BITS:(w0 + KW_MAX) * WORD_BITS, :]
+        yield lp[..., w0:w0 + KW_MAX], ups, -(-ups.shape[-2] // 256)
 
 
 def _bound(x, name: str, device):
@@ -138,14 +192,20 @@ def _fns():
                         lib.gf2_schur_hopper_capacity)
     launch.argtypes = [_VOID, _LONG, _VOID, _LONG, _INT, _VOID, _LONG, _INT,
                        _VOID, _VOID, _VOID] + [_INT] * 8 + [_VOID]
-    capacity.argtypes = [_INT]
+    blaunch, bcapacity = (lib.gf2_schur_hopper_batched_launch,
+                          lib.gf2_schur_hopper_batched_capacity)
+    blaunch.argtypes = ([_VOID, _LONG, _LONG, _VOID, _LONG, _LONG, _INT,
+                         _VOID, _LONG, _LONG, _INT, _VOID, _VOID, _VOID]
+                        + [_INT] * 7 + [_VOID])
+    capacity.argtypes = bcapacity.argtypes = [_INT]
     launch.restype = capacity.restype = _INT
-    return launch, capacity
+    blaunch.restype = bcapacity.restype = _INT
+    return launch, capacity, blaunch, bcapacity
 
 
 @functools.lru_cache(maxsize=None)
-def _capacity(ks: int) -> int:
-    got = _fns()[1](ks)
+def _capacity(ks: int, batched: bool = False) -> int:
+    got = _fns()[3 if batched else 1](ks)
     if got < 1:
         raise RuntimeError(f"gf2_schur_hopper: no block of {ks} k-steps "
                            f"fits the card ({got})")
@@ -225,5 +285,81 @@ def gf2_schur_update_dyn_hopper(c: torch.Tensor, lp: torch.Tensor,
     return c
 
 
+def _check_batched(c, lp, up):
+    for name, t in (("c", c), ("lp", lp), ("up", up)):
+        if t.dtype != torch.int32 or t.dim() != 3:
+            raise TypeError(f"{name}: want a 3-D int32 tensor, got {t.dtype} "
+                            f"with {t.dim()} dims")
+        if t.shape[2] > 1 and t.stride(2) != 1:
+            raise ValueError(f"{name}: the words of a row must be adjacent")
+        if t.device != c.device:
+            raise ValueError(f"{name} lies on {t.device}, c on {c.device}")
+    B, m, nw = c.shape
+    if lp.shape[:2] != (B, m) or up.shape[0] != B or up.shape[2] != nw:
+        raise ValueError(f"c {tuple(c.shape)}, lp {tuple(lp.shape)}, up "
+                         f"{tuple(up.shape)}: want [B, m, nw], [B, m, kw], "
+                         "[B, k, nw]")
+    if up.shape[1] > WORD_BITS * lp.shape[2]:
+        raise ValueError(f"up has {up.shape[1]} rows, lp only {lp.shape[2]} "
+                         "words of contraction")
+
+
+def gf2_schur_update_batched_hopper(c: torch.Tensor, lp: torch.Tensor,
+                                    up: torch.Tensor, r0, c0w: int
+                                    ) -> torch.Tensor:
+    """``c[b] ^= lp[b]*up[b]`` in place for every element, under the
+    contract above taken element by element: rows of lp[b] above r0[b] and
+    words of up[b] left of c0w are zero.  ``r0``: an int for all, or an
+    int32 tensor ``[B]`` on c's device (read there); ``c0w``: an int.  CPU
+    tensors take the plain version; CUDA tensors launch the kernel or
+    raise."""
+    _check_batched(c, lp, up)
+    if not isinstance(c0w, int):
+        raise TypeError(f"c0w: want an int, got {type(c0w).__name__}")
+    B, m, nw = c.shape
+    r0_t = None
+    if isinstance(r0, torch.Tensor):
+        if tuple(r0.shape) != (B,):
+            raise ValueError(f"r0: want shape ({B},), got {tuple(r0.shape)}")
+        if r0.device != c.device:
+            raise ValueError(f"r0 lies on {r0.device}, c on {c.device}")
+        r0_t = r0.to(torch.int32).contiguous()
+    if not c.is_cuda:
+        return gf2_schur_update_plain(c, lp, up)
+    tiles_i, tiles_j = _tiles(m, nw)
+    j0 = max(c0w, 0) // TILE_WORDS
+    if c.numel() == 0 or up.shape[1] == 0 or j0 >= tiles_j:
+        return c
+    # the prefix sum of the elements' active tiles, on the card; the grid
+    # no larger than the tiles that may be active as far as the host knows
+    i0 = 0 if r0_t is not None else max(int(r0), 0) // TILE_ROWS
+    if i0 >= tiles_i:
+        return c
+    cum = _batched_cum(m, nw, r0 if r0_t is None else r0_t, c0w, B, c.device)
+    n_j = tiles_j - j0
+    upper = B * (tiles_i - i0) * n_j
+    blaunch = _fns()[2]
+    with torch.cuda.device(c.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        for lps, ups, ks in _slices(lp, up):
+            blocks = min(upper, _capacity(ks, True))
+            ut = torch.empty(B * n_j * _TILE_COLS * 8 * ks, dtype=torch.int32,
+                             device=c.device)
+            err = blaunch(
+                c.data_ptr(), c.stride(1), c.stride(0), lps.data_ptr(),
+                lps.stride(1), lps.stride(0), lps.shape[2], ups.data_ptr(),
+                ups.stride(1), ups.stride(0), ups.shape[1], ut.data_ptr(),
+                None if r0_t is None else r0_t.data_ptr(), cum.data_ptr(),
+                0 if r0_t is not None else int(r0), c0w, m, nw, B, ks, blocks,
+                stream)
+            gf2_schur_update_batched_hopper.launches += 1
+            if err:
+                raise RuntimeError(
+                    f"gf2_schur_update_batched_hopper: CUDA error {err} at "
+                    f"launch (B={B}, c {m}x{nw} words, k={up.shape[1]})")
+    return c
+
+
 gf2_schur_update_hopper.launches = 0
 gf2_schur_update_dyn_hopper.launches = 0
+gf2_schur_update_batched_hopper.launches = 0

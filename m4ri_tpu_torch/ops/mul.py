@@ -53,29 +53,30 @@ def _shifts(device) -> torch.Tensor:
 
 
 def unpack_bits(data: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
-    """int32[m, w] -> dtype[m, w*32] of 0/1 lanes (column c at lane c).
-    The arithmetic ``>>`` is harmless: ``& 1`` keeps bit 0 only."""
-    m, w = data.shape
-    bits = (data[:, :, None] >> _shifts(data.device)[None, None, :]) & 1
-    return bits.reshape(m, w * WORD_BITS).to(dtype)
+    """int32[..., m, w] -> dtype[..., m, w*32] of 0/1 lanes (column c at
+    lane c; leading batch axes pass through).  The arithmetic ``>>`` is
+    harmless: ``& 1`` keeps bit 0 only."""
+    *lead, w = data.shape
+    bits = (data[..., None] >> _shifts(data.device)) & 1
+    return bits.reshape(*lead, w * WORD_BITS).to(dtype)
 
 
 def pack_bits(bits: torch.Tensor) -> torch.Tensor:
-    """0/1 integer [m, n] -> packed int32[m, ceil(n/32)].  The 32 shifted
-    bits of a word are disjoint, so their int32 sum is their OR; bit 31
-    lands on the sign and nothing overflows."""
-    m, n = bits.shape
+    """0/1 integer [..., m, n] -> packed int32[..., m, ceil(n/32)].  The 32
+    shifted bits of a word are disjoint, so their int32 sum is their OR;
+    bit 31 lands on the sign and nothing overflows."""
+    *lead, n = bits.shape
     w = width_for(n)
     pad = w * WORD_BITS - n
     if pad:
         bits = torch.nn.functional.pad(bits, (0, pad))
-    u = bits.reshape(m, w, WORD_BITS).to(torch.int32)
-    return (u << _shifts(bits.device)[None, None, :]).sum(
-        dim=-1, dtype=torch.int32)
+    u = bits.reshape(*lead, w, WORD_BITS).to(torch.int32)
+    return (u << _shifts(bits.device)).sum(dim=-1, dtype=torch.int32)
 
 
 def _dot_parity(a_u: torch.Tensor, b_u: torch.Tensor) -> torch.Tensor:
-    """(unpacked A) @ (unpacked B) mod 2, packed.  float32 operands and a
+    """(unpacked A) @ (unpacked B) mod 2, packed (a leading batch axis is a
+    batched product).  float32 operands and a
     float32 result: exact for k < 2**24.  (An int8 matmul on the CPU wraps
     at 8 bits, a bf16/fp16 one on the card rounds its result; TF32 is
     switched off around the product because it would round the counts.)"""

@@ -665,3 +665,132 @@ def test_compat_names_equal_the_cpu_port(card, name, args):
     _same(getattr(c, name)(*args(dev)), getattr(c, name)(*args(host)))
     assert c.mzd_init(256, 300).device.type == "cuda"
     assert c.mzp_init(256).device.type == "cuda"
+
+
+# ---- the batched path: kernels a, b, c and the sweep -----------------------
+
+def _stack(seed, B, rows, cols, dev):
+    return torch.stack([_packed(seed + i, rows, cols, dev) for i in range(B)])
+
+
+@pytest.mark.parametrize("h,nb,B", [(32, 32, 300), (576, 512, 5), (200, 64, 9)])
+@pytest.mark.parametrize("pres", [False, True])
+def test_batched_panel_kernel_equals_plain(card, h, nb, B, pres):
+    """Kernel a: one block a window, each with its own base and rank (one
+    window with a zeroed band, one all zero); the outputs of the batched
+    plain version, window by window."""
+    x = _stack(130, B, h, nb, card)
+    x[1, 3:h // 2] = 0
+    x[2] = 0
+    al0 = torch.cat([x, torch.zeros_like(x)], dim=2)
+    base = torch.arange(B, dtype=torch.int32, device=card) * 7
+    r0 = base + (torch.arange(B, device=card) % 3).to(torch.int32)
+    m = int(base[-1]) + h - 5
+    got = hopper_panel.panel_loop_hopper_batched(al0, r0, base, m, nb, pres)
+    want = hopper_panel.panel_loop_batched_plain(al0, r0, base, m, nb, pres)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.equal(g, w)
+
+
+def test_batched_panel_kernel_refuses_a_window_past_shared(card):
+    al0 = torch.zeros((2, 17152, 32), dtype=torch.int32, device=card)
+    r = torch.zeros(2, dtype=torch.int32, device=card)
+    with pytest.raises(RuntimeError):
+        hopper_panel.panel_loop_hopper_batched(al0, r, r, 17152, 512, True)
+
+
+@pytest.mark.parametrize("B,m,nb", [(600, 256, 32), (6, 1792, 512),
+                                    (3, 4864, 512)])
+def test_batched_post_kernel_equals_plain(card, B, m, nb):
+    """Kernel b: each element's own operands, row range and flag; a view of
+    a wider stack as the sweep hands it over."""
+    g = torch.Generator(device="cpu").manual_seed(B)
+    wide = _stack(140, B, m, nb + 64, card)
+    xw = wide[:, :, 1:1 + nb // 32]
+    msm, wm = (torch.randint(0, 2, (B, nb, nb), generator=g,
+                             dtype=torch.int8).to(card) for _ in range(2))
+    cmb = (torch.rand((B, nb), generator=g) < 0.1).to(torch.int8).to(card)
+    below0 = torch.randint(0, m, (B,), generator=g, dtype=torch.int32).to(card)
+    got = hopper_post.panel_post_hopper_batched(xw, msm, wm, cmb, below0, m - 3)
+    want = hopper_post.panel_post_batched_plain(xw, msm, wm, cmb, below0, m - 3)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert bool(got[2].any())
+
+
+@pytest.mark.parametrize("B,m,k,nw,c0w", [(5, 512, 512, 40, 16),
+                                          (1024, 512, 512, 16, 0),
+                                          (3, 300, 1100, 37, 9),
+                                          (16, 4864, 512, 128, 48)])
+@pytest.mark.parametrize("bound", ["int", "tensor"])
+def test_batched_schur_kernel_equals_plain(card, B, m, k, nw, c0w, bound):
+    """Kernel c: each element under the contract of its own r0 (some past
+    every row), a contraction deeper than one launch's, ragged tiles."""
+    c = _stack(150, B, m, nw * 32, card)
+    lp = _stack(160, B, m, k, card)
+    up = _stack(170, B, k, nw * 32, card)
+    r0s = (torch.arange(B, device=card) * 97 % (m + 300)).to(torch.int32)
+    if bound == "int":
+        r0s[:] = 5
+    rows = torch.arange(m, device=card)
+    lp *= (rows[None, :] >= r0s[:, None]).to(torch.int32)[:, :, None]
+    up[:, :, :c0w] = 0
+    want = hopper_schur.gf2_schur_update_plain(c.clone(), lp, up)
+    r0 = 5 if bound == "int" else r0s
+    hopper_schur.gf2_schur_update_batched_hopper(c, lp, up, r0, c0w)
+    torch.cuda.synchronize()
+    assert torch.equal(c, want)
+
+
+@pytest.mark.parametrize("B,m,n,pres", [(64, 32, 32, False), (4, 768, 3488, True),
+                                        (3, 1000, 700, False)])
+def test_batched_sweep_equals_single_block_factor(card, B, m, n, pres):
+    """block_factor_batched on the card: each element equals the
+    single-matrix block_factor on the card, with a zero matrix and a
+    deficient one in the batch; the batched kernels launched."""
+    import m4ri_tpu_torch as mt
+    from m4ri_tpu_torch.models.batched import block_factor_batched
+    data = _stack(180, B, m, n, card)
+    data[1] = 0
+    data[2, 5:m // 2] = 0
+    before = (hopper_panel.panel_loop_hopper_batched.launches,
+              hopper_post.panel_post_hopper_batched.launches)
+    got = block_factor_batched(data, n, pres)
+    for i in range(B):
+        want = mt.block_factor(mt.BitMatrix(data[i], n), pres)
+        for g, w in zip(got[:3], want[:3]):
+            assert torch.equal(g[i], w)
+        assert int(got[3][i]) == want[3]
+    assert hopper_panel.panel_loop_hopper_batched.launches > before[0]
+    assert hopper_post.panel_post_hopper_batched.launches > before[1]
+
+
+def test_batched_sweep_counts_every_read_back(card):
+    """Every call that waits for the card in a batched factorization, as
+    PyTorch's sync debug mode sees it, is one the sweep counts in
+    ``host_syncs``: one a panel, one more on a panel where some element
+    missed, and none in the full-height fallbacks."""
+    import warnings
+
+    from m4ri_tpu_torch.models import batched
+    B, m, n = 5, 1000, 700
+    data = _stack(181, B, m, n, card)
+    data[::2, 100:600] = 0              # three elements miss their windows
+    batched.block_factor_batched(data, n, True)       # kernels built
+    torch.cuda.synchronize()
+    fn = batched.block_factor_batched
+    s0, f0 = fn.host_syncs, fn.miss_fallbacks
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn(data, n, True)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    waits = sum("synchroniz" in str(w.message) for w in caught)
+    panels = -(-n // batched.panel_widths(m, n)[0])
+    assert fn.miss_fallbacks > f0
+    assert waits == fn.host_syncs - s0
+    assert panels < waits <= 2 * panels

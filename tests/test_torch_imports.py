@@ -41,8 +41,10 @@ def test_the_walk_sees_the_port():
             "triangular.py", "solve.py", "split_solve.py",
             "tune_cutoffs.py", "m4rm.py", "djb.py", "io.py", "compat.py",
             "build.py", "mesh.py", "dist_mul.py", "dist_echelon.py",
-            "dist_ple.py", "dist_solve.py", "_spawn.py", "dryrun.py"} <= names
+            "dist_ple.py", "dist_solve.py", "_spawn.py", "dryrun.py",
+            "batched.py"} <= names
     assert PKG / "parallel" / "dist_ple.py" in FILES
+    assert PKG / "models" / "batched.py" in FILES
     assert PKG / "dryrun.py" in FILES
     assert PKG / "native" / "build.py" in FILES
 

@@ -404,3 +404,87 @@ def test_schur_plain_is_in_place(rng):
     assert out is Tc.data
     np.testing.assert_array_equal(words(mj.from_numpy(c ^ oracle.mul(lp, up))),
                                   words(out))
+
+
+# ---- the batched plain versions, element by element -----------------------
+
+from m4ri_tpu_torch.ops.hopper_panel import (  # noqa: E402
+    panel_loop_batched_plain, panel_loop_hopper_batched)
+from m4ri_tpu_torch.ops.hopper_post import (  # noqa: E402
+    panel_post_batched_plain, panel_post_hopper_batched)
+
+
+@pytest.mark.parametrize("nb,h,pres,sw", [(64, 80, True, 0), (64, 80, False, 0),
+                                          (32, 40, True, 8), (96, 100, True, 0)])
+def test_batched_panel_plain_equals_single_plain(rng, nb, h, pres, sw):
+    """Each window of the batch as panel_loop_plain takes it alone: its own
+    base, its own rank at entry, a window without a 1, a zeroed band, rows
+    past m."""
+    B, m = 5, 95
+    x = np.stack([_window(rng, h, nb, bit31=True) for _ in range(B)])
+    x[2, 10:50] = 0
+    x[3] = 0
+    al0 = torch.stack([torch.cat([mt.from_numpy(w, device="cpu").data,
+                                  torch.zeros((h, nb // 32), dtype=torch.int32)],
+                                 dim=1) for w in x])
+    base = torch.tensor([0, 10, 100, 5, 7], dtype=torch.int32)
+    r0 = base + torch.tensor([0, 3, 0, 1, 0], dtype=torch.int32)
+    for fn in (panel_loop_batched_plain, panel_loop_hopper_batched):
+        got = fn(al0, r0, base, m, nb, pres, sw)
+        for b in range(B):
+            want = panel_loop_plain(al0[b], int(r0[b]), int(base[b]), m, nb,
+                                    pres, sw)
+            for g, w in zip(got, want):
+                assert torch.equal(g[b], w), (fn.__name__, b)
+
+
+def test_batched_panel_raises_on_what_it_does_not_take():
+    al0 = torch.zeros((2, 40, 2), dtype=torch.int32)
+    r = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(TypeError):                        # one window, no batch
+        panel_loop_hopper_batched(al0[0], r, r, 40, 32, True)
+    with pytest.raises(TypeError):                        # a rank for each
+        panel_loop_hopper_batched(al0, r[:1], r, 40, 32, True)
+    with pytest.raises(ValueError):                       # an empty batch
+        panel_loop_hopper_batched(al0[:0], r[:0], r[:0], 40, 32, True)
+
+
+@pytest.mark.parametrize("m,nb,cm_density", [(512, 64, 0.2), (256, 32, 0.5),
+                                             (300, 128, 0.0)])
+def test_batched_post_plain_equals_single_plain(rng, m, nb, cm_density):
+    """Each element as panel_post_plain takes it: its own operands and its
+    own row range, from all rows in range to none; flags differ across the
+    batch."""
+    B = 4
+    xs = torch.stack([mt.from_numpy(random_dense(rng, m, nb), device="cpu").data
+                      for _ in range(B)])
+    msm, wm = (torch.from_numpy((rng.random((B, nb, nb)) < 0.5).astype(np.int8))
+               for _ in range(2))
+    cmb = torch.from_numpy((rng.random((B, nb)) < cm_density).astype(np.int8))
+    cmb[1] = 0
+    below0 = torch.tensor([0, 100, m - 3, m], dtype=torch.int32)
+    mvalid = m - 2
+    for fn in (panel_post_batched_plain, panel_post_hopper_batched):
+        vw, lamw, miss = fn(xs, msm, wm, cmb, below0, mvalid)
+        assert miss.shape == (B,) and miss.dtype == torch.bool
+        for b in range(B):
+            want = panel_post_plain(xs[b], msm[b], wm[b], cmb[b],
+                                    int(below0[b]), mvalid)
+            assert torch.equal(vw[b], want[0]) and torch.equal(lamw[b], want[1])
+            assert bool(miss[b]) == bool(want[2])
+    assert not miss[1] and not miss[3]
+
+
+def test_batched_post_takes_a_strided_view(rng):
+    B, m, nb = 3, 130, 64
+    parent = torch.stack([mt.from_numpy(random_dense(rng, m, 5 * 32),
+                                        device="cpu").data for _ in range(B)])
+    view = parent[:, :, 2:4]
+    msm, wm = (torch.from_numpy((rng.random((B, nb, nb)) < 0.5).astype(np.int8))
+               for _ in range(2))
+    cmb = torch.ones((B, nb), dtype=torch.int8)
+    below0 = torch.tensor([40, 0, 129], dtype=torch.int32)
+    a = panel_post_hopper_batched(view, msm, wm, cmb, below0, 120)
+    b = panel_post_hopper_batched(view.contiguous(), msm, wm, cmb, below0, 120)
+    for x_, y_ in zip(a, b):
+        assert torch.equal(x_, y_)

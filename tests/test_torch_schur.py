@@ -163,3 +163,73 @@ def test_bound_errors():
     with pytest.raises(ValueError):                       # k past lp's words
         gf2_schur_update_hopper(c, lp, torch.zeros((33, TILE_WORDS),
                                                    dtype=torch.int32), 0, 0)
+
+
+# ---- the batched update ----------------------------------------------------
+
+from m4ri_tpu_torch.ops.hopper_schur import (  # noqa: E402
+    gf2_schur_update_batched_hopper, gf2_schur_update_plain,
+    schur_schedule_batched_plain)
+
+
+@settings(max_examples=200, deadline=None)
+@given(m=st.integers(1, 2000), nw=st.integers(1, 100),
+       r0s=st.lists(st.integers(-5, 2100), min_size=1, max_size=12),
+       c0w=st.integers(0, 99), blocks=st.integers(1, 200))
+def test_batched_schedule_takes_every_active_tile_once(m, nw, r0s, c0w, blocks):
+    """Every element's active tiles once, no other, in balanced runs that
+    go element after element, row-major inside an element."""
+    c0w = min(c0w, -(-nw // TILE_WORDS) * TILE_WORDS - 1)
+    runs = schur_schedule_batched_plain(m, nw, r0s, c0w, blocks)
+    assert len(runs) == blocks
+    taken = [tuple(t) for run in runs for t in run.tolist()]
+    assert len(taken) == len(set(taken))
+    want = {(e, i, j) for e, r0 in enumerate(r0s)
+            for (i, j) in _active(m, nw, r0, c0w, 0)}
+    assert set(taken) == want
+    sizes = [len(run) for run in runs]
+    assert max(sizes) - min(sizes) <= 1
+    flat = [(e * 10**6 + i) * 10**4 + j for e, i, j in taken]
+    assert flat == sorted(flat)
+
+
+@pytest.mark.parametrize("k", [96, 1025, 2100])
+@pytest.mark.parametrize("bound", ["int", "tensor"])
+def test_batched_plain_equals_single_plain(rng, k, bound):
+    """Each element as gf2_schur_update_plain takes it alone, under the
+    contract of its own r0 (one of them past every row); a contraction
+    deeper than one launch's.  The plain version on the stacks is the
+    batched kernel's plain version."""
+    B, m, nw, c0w = 4, 300, 2 * TILE_WORDS + 3, 9
+    r0s = [0, 70, 300, 257]
+    cs, lps, ups = [], [], []
+    for r0 in r0s:
+        c, lp, up = _operands(rng, m, k, nw * 32, r0, c0w * 32)
+        cs.append(_cpu(c)), lps.append(_cpu(lp)), ups.append(_cpu(up))
+    C, L, U = torch.stack(cs), torch.stack(lps), torch.stack(ups)
+    want = [gf2_schur_update_plain(c.clone(), lp, up)
+            for c, lp, up in zip(cs, lps, ups)]
+    r0 = 0 if bound == "int" else torch.tensor(r0s, dtype=torch.int32)
+    for fn in (gf2_schur_update_batched_hopper,
+               lambda c, lp, up, *_: gf2_schur_update_plain(c, lp, up)):
+        got = C.clone()
+        assert fn(got, L, U, r0, c0w).data_ptr() == got.data_ptr()
+        for b in range(B):
+            assert torch.equal(got[b], want[b]), b
+
+
+def test_batched_update_errors():
+    c = torch.zeros((2, TILE_ROWS, TILE_WORDS), dtype=torch.int32)
+    lp = torch.zeros((2, TILE_ROWS, 1), dtype=torch.int32)
+    up = torch.zeros((2, 32, TILE_WORDS), dtype=torch.int32)
+    with pytest.raises(TypeError):                        # no batch axis
+        gf2_schur_update_batched_hopper(c[0], lp[0], up[0], 0, 0)
+    with pytest.raises(ValueError):                       # batches differ
+        gf2_schur_update_batched_hopper(c, lp[:1], up, 0, 0)
+    with pytest.raises(ValueError):                       # k past lp's words
+        gf2_schur_update_batched_hopper(
+            c, lp, torch.zeros((2, 33, TILE_WORDS), dtype=torch.int32), 0, 0)
+    with pytest.raises(ValueError):                       # one r0 an element
+        gf2_schur_update_batched_hopper(c, lp, up, torch.zeros(3), 0)
+    with pytest.raises(TypeError):                        # c0w is an int
+        gf2_schur_update_batched_hopper(c, lp, up, 0, torch.tensor(0))

@@ -36,8 +36,15 @@ word the single-device entry point's; then the batched path
 single-matrix ``block_factor``, and ``mul_packed_batched`` of 1024 products
 512^2 x 512^2 against ``mul_packed_data`` and Freivalds' check; its three
 batched kernels are held to their batched plain versions on the McEliece
-batch's first panel.  The launch counters show that the kernels ran, on the
-distributed and batched paths too.  One JSON object per phase; the
+batch's first panel; then the batched solver API at the widths of Classic
+McEliece mceliece348864: ``ple_batched`` / ``pluq_batched``, both RREF
+strategies and ``kernel_left_batched`` of the 256 McEliece matrices,
+``solve_left_batched`` and ``pluq_solve_left_batched`` of 1024 768^2 systems
+with one syndrome each (one Prange guess an element), ``invert_batched`` of
+those 1024 and the TRTRIs and TRSMs of 256 unit triangular 768^2, every
+element equal to the single-matrix call and 8 held to the host's
+Gauss-Jordan elimination or a float32 product.  The launch counters show that
+the kernels ran, on the distributed and batched paths too.  One JSON object per phase; the
 ``kernels`` line, the card's name and power limit, and last of all
 ``{"ok": true, "device": {...}}``.  Any mismatch, build failure or launch
 error ends the run with a non-zero exit code and without that last line.
@@ -834,6 +841,14 @@ FACTOR_KERNELS = ("panel_loop_hopper", "panel_post_hopper",
                   "gf2_mul_hopper")
 
 
+def sync_waits(caught) -> int:
+    """The warnings of PyTorch's sync debug mode that name a call that
+    waited for the card (its one-time notice that the mode is a prototype
+    is not one)."""
+    return sum("called a synchronizing CUDA operation" in str(w.message)
+               for w in caught)
+
+
 def time_host_ms(fn, runs: int, warmup: int = 1) -> dict:
     """Host-clock time of each of ``runs`` calls, each ended by a
     synchronize: a factorization reads back from the device as it goes."""
@@ -921,8 +936,7 @@ def phase_ple_16384(seed: int) -> dict:
         finally:
             torch.cuda.set_sync_debug_mode("default")
     per_run["sync_debug_warn"] = {
-        "synchronising_calls": sum("synchroniz" in str(w.message)
-                                   for w in caught),
+        "synchronising_calls": sync_waits(caught),
         "host_syncs": ple_mod.block_factor.host_syncs - syncs0}
     # the persistent Schur entry instead of the gridded one
     got_dyn, launched, _, misses = with_config(
@@ -2513,7 +2527,7 @@ def phase_batched_miss_4096(seed: int) -> dict:
             m4.block_factor_batched(data, n, True)
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    waits = sum("synchroniz" in str(w.message) for w in caught)
+    waits = sync_waits(caught)
     check(waits == batched_mod.block_factor_batched.host_syncs - s0 == syncs,
           f"{waits} synchronising calls, {syncs} counted read-backs")
     t = time_host_ms(lambda: m4.block_factor_batched(data, n, True), runs=3)
@@ -2603,6 +2617,334 @@ def phase_batched_mul_512(seed: int) -> dict:
     return launched
 
 
+# ------------------------------------------- the batched solver API ---
+
+ISD = (1024, 768)              # Prange: the information set H_I, 768 = n - k
+TRSM_BATCH = 256
+SAMPLE = 8                     # elements checked outside the code under test
+LOOP_SLICE = 32                # single calls of an entry pinned to another
+
+
+def host_rref(words: np.ndarray, ncols: int) -> tuple[np.ndarray, int]:
+    """RREF and rank of one packed matrix (uint32 words [m, w]) by
+    Gauss-Jordan elimination on the host, one column a step, the pivot the
+    first row at or below the rank: the sequential oracle, independent of
+    the port."""
+    rows = np.ascontiguousarray(words, dtype=np.uint32).copy()
+    m, r = rows.shape[0], 0
+    for c in range(ncols):
+        w, b = divmod(c, 32)
+        bit = ((rows[:, w] >> np.uint32(b)) & 1).astype(bool)
+        below = np.flatnonzero(bit[r:])
+        if below.size == 0:
+            continue
+        p = r + below[0]
+        if p != r:
+            rows[[r, p]] = rows[[p, r]]
+            bit[[r, p]] = bit[[p, r]]
+        bit[r] = False
+        rows[bit] ^= rows[r]
+        r += 1
+        if r == m:
+            break
+    return rows, r
+
+
+def host_words(t: torch.Tensor) -> np.ndarray:
+    return t.cpu().numpy().view(np.uint32)
+
+
+def batched_call(fn):
+    """One call of ``fn`` with every count set to 0 just before, under
+    PyTorch's sync debug mode: (result, launches, counted read-backs,
+    synchronising calls, miss fallbacks, peak GB, ms on the host clock
+    ended by a synchronize)."""
+    zero_counts()
+    bf = batched_mod.block_factor_batched
+    s0, f0 = bf.host_syncs, bf.miss_fallbacks
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.perf_counter()
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    waits = sync_waits(caught)
+    return (out, counts(), bf.host_syncs - s0, waits, bf.miss_fallbacks - f0,
+            torch.cuda.max_memory_allocated() / 1e9, ms)
+
+
+def as_tensor(x) -> torch.Tensor:
+    if isinstance(x, BitMatrix):
+        return x.data
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.tensor(x, device=DEV)
+
+
+def same_elements(what: str, got: tuple, singles: list) -> None:
+    """Every part of every element of a batched result equals the
+    single-matrix call's."""
+    for j, part in enumerate(got):
+        want = torch.stack([as_tensor(s[j]).to(part.dtype) for s in singles])
+        if not torch.equal(part, want):
+            bad = [i for i in range(len(singles))
+                   if not torch.equal(part[i], want[i])]
+            check(False, f"{what}: part {j} of elements {bad[:10]} differs "
+                  "from the single-matrix call on the card")
+
+
+def batched_entry(what: str, batched_fn, single_fn, B: int, report: dict,
+                  total: dict, kernels=BATCHED, loop: int | None = None):
+    """The batched call counted and timed (median of 3: the counted call
+    and two more), the loop of single calls on the same input once (timed;
+    its results are what every element is held to), and the read-backs
+    pinned: the sweep's count equals PyTorch's count of synchronising
+    calls.  ``loop`` < B runs the single calls on the first ``loop``
+    elements only: for an entry whose whole batch the caller holds to
+    another batched result that is itself held to the single call element
+    by element.  Returns the batched result."""
+    out, launched, syncs, waits, misses, peak, ms0 = batched_call(batched_fn)
+    add_counts(total, launched)
+    check(all(launched[k] > 0 for k in kernels),
+          f"{what}: launched {counts(BATCHED)}")
+    check(waits == syncs, f"{what}: {waits} synchronising calls, {syncs} "
+          "counted read-backs")
+    ts = [ms0] + [time_host_ms(batched_fn, runs=1, warmup=0)["median"]
+                  for _ in range(2)]
+    loop = B if loop is None else loop
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    singles = [single_fn(i) for i in range(loop)]
+    torch.cuda.synchronize()
+    loop_ms = (time.perf_counter() - t0) * 1e3
+    parts = out if isinstance(out, tuple) else (out,)
+    same_elements(what, tuple(x[:loop] for x in parts),
+                  [s if isinstance(s, tuple) else (s,) for s in singles])
+    ms = statistics.median(ts)
+    report[what] = {"ms": ms, "runs_ms": ts, "calls_per_s": B / ms * 1e3,
+                    "loop_of_single_calls_ms": loop_ms, "loop_elements": loop,
+                    "batched_over_loop": loop_ms / loop * B / ms,
+                    "host_syncs": syncs, "synchronising_calls": waits,
+                    "miss_fallbacks": misses, "peak_memory_gb": peak,
+                    "launches": {k: launched[k] for k in BATCHED}}
+    del singles
+    return out
+
+
+def phase_batched_ple_pluq_mceliece(seed: int) -> dict:
+    """ple_batched and pluq_batched of the McEliece stack (256 x 768 x
+    3488): every element equal to the single-matrix call on the card, and
+    the rank of 8 of them equal to the host's sequential elimination."""
+    B, m, n = MCELIECE
+    data = stack_on_card(seed + 900, B, m, n)
+    report, total = {}, {}
+    ranks = [host_rref(host_words(data[i]), n)[1] for i in range(SAMPLE)]
+    for name in ("ple", "pluq"):
+        got = batched_entry(
+            name, lambda: getattr(m4, f"{name}_batched")(data, n),
+            lambda i: getattr(m4, name)(BitMatrix(data[i], n)), B, report,
+            total)
+        for i, rk in enumerate(ranks):
+            check(int(got[3][i]) == rk, f"{name}: element {i}'s rank "
+                  f"{int(got[3][i])}, the host's elimination {rk}")
+        del got
+    emit("batched_ple_pluq_mceliece", ok=True, batch=B, shape=[m, n],
+         runs=report)
+    return total
+
+
+def phase_batched_rref_mceliece(seed: int) -> dict:
+    """echelonize_batched(full=True) by both strategies and
+    kernel_left_batched of the McEliece stack: every element equal to the
+    single-matrix call (the pluq strategy's RREF: the whole batch equal to
+    the m4ri one's, the RREF being unique, and its single calls run on the
+    first 32 elements); on 8 elements the RREF equal to the host's
+    Gauss-Jordan elimination word for word, and H K = 0 with n - r kernel
+    columns by a float32 product of the unpacked bits."""
+    B, m, n = MCELIECE
+    data = stack_on_card(seed + 900, B, m, n)
+    report, total = {}, {}
+    oracle = [host_rref(host_words(data[i]), n) for i in range(SAMPLE)]
+    rref = None
+    for strategy in ("m4ri", "pluq"):
+        # the RREF is unique: the pluq strategy's whole batch is held to the
+        # m4ri one's, which is held to the single call element by element
+        E, r = batched_entry(
+            f"echelonize_{strategy}",
+            lambda: m4.echelonize_batched(data, n, strategy=strategy),
+            lambda i: m4.echelonize(BitMatrix(data[i], n), strategy=strategy),
+            B, report, total, loop=None if rref is None else LOOP_SLICE)
+        for i, (want, rk) in enumerate(oracle):
+            check(int(r[i]) == rk and np.array_equal(host_words(E[i]), want),
+                  f"echelonize {strategy}: element {i} differs from the "
+                  "host's RREF")
+        if rref is None:
+            rref = E, r
+        else:
+            check(torch.equal(E, rref[0]) and torch.equal(r, rref[1]),
+                  "echelonize: the pluq strategy's RREF differs from m4ri's")
+        del E, r
+    del rref
+    K, count = batched_entry(
+        "kernel_left", lambda: m4.kernel_left_batched(data, n),
+        lambda i: m4.kernel_left(BitMatrix(data[i], n)), B, report, total)
+    for i, (_, rk) in enumerate(oracle):
+        check(int(count[i]) == n - rk, f"kernel_left: element {i}'s count")
+        check(not bool(f32_product(data[i], n, K[i], n).any()),
+              f"kernel_left: H K is not zero for element {i}")
+    emit("batched_rref_mceliece", ok=True, batch=B, shape=[m, n],
+         ranks=sorted(set(count.neg().add(n).tolist())), runs=report)
+    return total
+
+
+def isd_stack(seed: int):
+    """1024 random 768^2 matrices (the information set H_I of a Prange
+    guess each) and a random 768 x 1 syndrome each."""
+    B, n = ISD
+    return stack_on_card(seed + 910, B, n, n), stack_on_card(seed + 911, B, n, 1)
+
+
+def check_solutions(what: str, A, S, X, ok) -> None:
+    """On 8 elements, 4 consistent and 4 not where the batch has them: the
+    flag equals rank(A) == rank([A | s]) by the host's elimination, and
+    A X = s by a float32 product where consistent."""
+    n = A.shape[1]
+    flags = ok.tolist()
+    pick = ([i for i, f in enumerate(flags) if f][:SAMPLE // 2]
+            + [i for i, f in enumerate(flags) if not f][:SAMPLE // 2])
+    check(len(pick) == SAMPLE, f"{what}: {sum(flags)} consistent of "
+          f"{len(flags)}: not both kinds")
+    for i in pick:
+        a = host_words(A[i])
+        _, ra = host_rref(a, n)
+        _, rab = host_rref(np.concatenate([a, host_words(S[i])], axis=1), n + 1)
+        check(flags[i] == (ra == rab), f"{what}: element {i}'s flag")
+        if flags[i]:
+            check(torch.equal(f32_product(A[i], n, X[i], 1), S[i]),
+                  f"{what}: A X != s for element {i}")
+
+
+def phase_batched_solve_isd(seed: int) -> dict:
+    """solve_left_batched of 1024 768^2 systems with one syndrome each,
+    then pluq_solve_left_batched on pluq_batched's factors of them: every
+    element equal to the single call on the card (pluq_solve_left's: the
+    whole batch equal to solve_left's, and its single calls run on the
+    first 32 elements); the flags and A X = s
+    checked on 8 elements outside the code under test."""
+    B, n = ISD
+    A, S = isd_stack(seed)
+    report, total = {}, {}
+    X, ok = batched_entry(
+        "solve_left", lambda: m4.solve_left_batched(A, n, S, 1),
+        lambda i: m4.solve_left(BitMatrix(A[i], n), BitMatrix(S[i], 1)), B,
+        report, total)
+    check_solutions("solve_left", A, S, X, ok)
+    M, P, Q, r = m4.pluq_batched(A, n)
+    X2, ok2 = batched_entry(
+        "pluq_solve_left",
+        lambda: m4.pluq_solve_left_batched(M, n, P, Q, r, S, 1),
+        lambda i: m4.pluq_solve_left(BitMatrix(M[i], n), P[i], Q[i],
+                                     int(r[i]), BitMatrix(S[i], 1)),
+        B, report, total, kernels=("gf2_schur_update_batched_hopper",),
+        loop=LOOP_SLICE)
+    # the whole batch held to solve_left's, held to the single call above
+    check(torch.equal(ok, ok2) and torch.equal(X, X2),
+          "pluq_solve_left differs from solve_left on the same systems")
+    ranks = torch.bincount(r, minlength=n + 1)
+    emit("batched_solve_isd", ok=True, batch=B, n=n, bcols=1,
+         consistent=int(ok.sum()), full_rank=int(ranks[n]),
+         rank_n_minus_1=int(ranks[n - 1]), runs=report)
+    return total
+
+
+def unit_triangles(seed: int, B: int, n: int) -> torch.Tensor:
+    """B random n x n words with the diagonal set: unit upper in one
+    triangle, junk in the other, and the other way round."""
+    t = stack_on_card(seed, B, n, n)
+    idx = torch.arange(n, device=DEV)
+    t[:, idx, idx // 32] |= torch.ones_like(idx, dtype=torch.int32) << (
+        idx % 32).to(torch.int32)
+    return t
+
+
+def phase_batched_invert_trsm(seed: int) -> dict:
+    """invert_batched of the ISD stack (A A^-1 = I where r_a = n, and r_a
+    the host's rank, on 8 elements), then trtri_*_batched and the four
+    trsm_*_batched of 256 unit triangular 768^2 with junk in the other
+    triangle, against a 768^2 B (the inverse, then one product) and a
+    768 x 64 B (64 x 768 on the right: block substitution): every element
+    equal to the single call (a TRSM's: the whole batch equal to the TRTRI
+    times B, the solution being unique, and its single calls run on the
+    first 32 elements); T X = B and T T^-1 = I on 8 elements by the float32
+    product."""
+    B, n = ISD
+    A, _ = isd_stack(seed)
+    report, total = {}, {}
+    Ai, r_a = batched_entry(
+        "invert", lambda: m4.invert_batched(A),
+        lambda i: m4.invert(BitMatrix(A[i], n)), B, report, total)
+    eye = m4.identity(n, device=DEV).data
+    for i in range(SAMPLE):
+        _, rk = host_rref(host_words(A[i]), n)
+        check(int(r_a[i]) == rk, f"invert: element {i}'s rank")
+        if rk == n:
+            check(torch.equal(f32_product(A[i], n, Ai[i], n), eye),
+                  f"invert: A A^-1 != I for element {i}")
+    full_rank = int((r_a == n).sum())
+    del A, Ai
+    Bt = TRSM_BATCH
+    T = unit_triangles(seed + 920, Bt, n)
+    rhs = {"square": stack_on_card(seed + 921, Bt, n, n),
+           "narrow_left": stack_on_card(seed + 922, Bt, n, 64),
+           "narrow_right": stack_on_card(seed + 923, Bt, 64, n)}
+    gemm = ("gf2_schur_update_batched_hopper",)
+    inverse = {}
+    for tri in ("upper", "lower"):
+        name = f"trtri_{tri}"
+        Ti = batched_entry(
+            name, lambda: getattr(m4, f"{name}_batched")(T),
+            lambda i: getattr(m4, name)(BitMatrix(T[i], n)), Bt, report,
+            total, kernels=gemm)
+        for i in range(SAMPLE):
+            check(torch.equal(f32_product(T[i], n, Ti[i], n, a_tri=tri), eye),
+                  f"{name}: T T^-1 != I for element {i}")
+        inverse[tri] = Ti
+    for name in ("trsm_upper_left", "trsm_lower_left", "trsm_upper_right",
+                 "trsm_lower_right"):
+        left = name.endswith("left")
+        tri = "upper" if "upper" in name else "lower"
+        for shape in ("square", "narrow_left" if left else "narrow_right"):
+            b = rhs[shape]
+            bcols = 64 if shape == "narrow_left" else n
+            X = batched_entry(
+                f"{name}_{shape}",
+                lambda: getattr(m4, f"{name}_batched")(T, b, bcols),
+                lambda i: getattr(m4, name)(BitMatrix(T[i], n),
+                                            BitMatrix(b[i], bcols)),
+                Bt, report, total, kernels=gemm, loop=LOOP_SLICE)
+            # the solution is unique: the whole batch held to the product
+            # of B and the TRTRI above, which is held to the single call
+            ti = inverse[tri]
+            check(torch.equal(X, m4.mul_packed_batched(ti, b) if left
+                              else m4.mul_packed_batched(b, ti)),
+                  f"{name} {shape}: X differs from the TRTRI times B")
+            for i in range(SAMPLE):
+                got = (f32_product(T[i], n, X[i], bcols, a_tri=tri) if left
+                       else f32_product(X[i], n, T[i], n, b_tri=tri))
+                check(torch.equal(got, b[i]),
+                      f"{name} {shape}: T X != B for element {i}")
+            del X
+    emit("batched_invert_trsm", ok=True, invert_batch=B, trsm_batch=Bt, n=n,
+         invertible=full_rank, runs=report)
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=17)
@@ -2647,7 +2989,9 @@ def main() -> int:
         batch_s = {}
         for phase in (phase_batched_rank_nist, phase_batched_factor_mceliece,
                       phase_batched_miss_4096, phase_batched_mul_512,
-                      phase_batched_one):
+                      phase_batched_one, phase_batched_ple_pluq_mceliece,
+                      phase_batched_rref_mceliece, phase_batched_solve_isd,
+                      phase_batched_invert_trsm):
             t = time.time()
             add_counts(launches, phase(seed))
             batch_s[phase.__name__.removeprefix("phase_")] = time.time() - t

@@ -22,8 +22,11 @@ product (``mul_m4rm`` / ``addmul_m4rm``), DJB linear maps (``djb_compile`` /
 multi-device layer (``parallel/``: SUMMA and k-split products, row-sharded
 PLE / rank / echelon, distributed TRSM / solve / invert / kernel on
 ``torch.distributed``, with its dry runs in ``dryrun.py``) and batching
-(``mul_packed_batched`` / ``block_factor_batched`` / ``rank_batched``, what
-the JAX package gets from ``jax.vmap``).  Like the JAX package, the top
+(``mul_packed_batched`` / ``block_factor_batched`` / ``rank_batched``,
+``ple_batched`` / ``pluq_batched`` and the batched solver API of
+``models/batched_solve.py``: TRSM / TRTRI, echelon forms, ``invert``,
+``solve_left`` / ``pluq_solve_left`` / ``kernel_left``; what the JAX package
+gets from ``jax.vmap``).  Like the JAX package, the top
 level does not export ``parallel``.
 """
 
@@ -45,7 +48,15 @@ from .models import echelon as _echelon, ple as _ple_mod, solve as _solve
 from .models import triangular as _triangular
 from .models.echelon import rank  # noqa: F401
 from .models.batched import (  # noqa: F401
-    block_factor_batched, mul_packed_batched, rank_batched,
+    block_factor_batched, mul_packed_batched, ple_batched, pluq_batched,
+    rank_batched,
+)
+from .models.batched_solve import (  # noqa: F401
+    echelonize_batched, echelonize_with_pivots_batched, invert_batched,
+    kernel_left_batched, pluq_solve_left_batched, solve_left_batched,
+    trsm_lower_left_batched, trsm_lower_right_batched,
+    trsm_upper_left_batched, trsm_upper_right_batched, trtri_lower_batched,
+    trtri_upper_batched,
 )
 from .models.djb import djb_apply, djb_compile  # noqa: F401
 from .models.ple import block_factor  # noqa: F401

@@ -1,7 +1,7 @@
 """The GF(2) GEMMs, the Schur update and the factorization of two trees,
 timed in turns on one card.
 
-    python -m m4ri_tpu_torch.benches.old_new --parent DIR [--quick]
+    python -m m4ri_tpu_torch.benches.old_new --parent DIR [--quick | --solver]
 
 DIR holds a checkout of another commit of this repository (unpack one with
 ``git archive <commit> | tar -x -C DIR``); its ``m4ri_tpu_torch`` is loaded
@@ -16,6 +16,12 @@ Schur entry points at the first and the middle panel of the sweeps at
 n=16384 (nb=512) and n=32768 (nb=1024), called as the sweep calls them (int
 bounds, finished column tiles skipped in each tree's own tiles), and
 ``ple`` / ``rank`` at 16384² and 32768² (``--quick``: the kernels only).
+``--solver`` times the single-matrix solver entry points instead: at the
+sizes of ``chip_smoke.py`` (``ple`` 16384², the four TRSMs 32768², RREF and
+``invert`` 16384², ``solve_left`` 32768² x 256 with its narrow TRSMs,
+``kernel_left`` 4096²) and at the McEliece sizes of its batched phases
+(``ple`` 768 x 3488, ``solve_left`` 768² x 1, ``invert`` 768², a 768² TRSM
+with a 768 x 64 B), each on the host clock ended by a synchronize.
 One JSON object a line.  Needs the card and ``nvcc``.
 """
 
@@ -115,11 +121,73 @@ def schur_calls(pkg, c, lp, up, r0: int, c0w: int) -> dict:
             c, lp, up, r0, c0w)}
 
 
+def unit_diagonal(words: torch.Tensor) -> torch.Tensor:
+    """The words of a square matrix with its diagonal set: unit upper in
+    one triangle, junk in the other, and the other way round."""
+    idx = torch.arange(words.shape[0], device=words.device)
+    out = words.clone()
+    out[idx, idx // 32] |= torch.ones_like(out[idx, 0]) << (idx % 32).to(
+        torch.int32)
+    return out
+
+
+def solver_cases(rng):
+    """(label, entry point, operands as (words, ncols), runs); from_packed
+    clears the padding bits."""
+    t32 = unit_diagonal(packed(rng, 32768, 32768))
+    b32 = packed(rng, 32768, 32768)
+    yield "ple 16384", "ple", [(packed(rng, 16384, 16384), 16384)], 5
+    for name in ("trsm_upper_left", "trsm_lower_left", "trsm_upper_right",
+                 "trsm_lower_right"):
+        yield f"{name} 32768", name, [(t32, 32768), (b32, 32768)], 3
+    del t32, b32
+    a16 = packed(rng, 16384, 16384)
+    yield "echelonize 16384", "echelonize", [(a16, 16384)], 5
+    yield "invert 16384", "invert", [(a16, 16384)], 5
+    yield ("solve_left 32768 x 256", "solve_left",
+           [(packed(rng, 32768, 32768), 32768),
+            (packed(rng, 32768, 256), 256)], 3)
+    yield ("kernel_left 4096", "kernel_left",
+           [(packed(rng, 4096, 4096), 4096)], 5)
+    yield "ple 768 x 3488", "ple", [(packed(rng, 768, 3488), 3488)], 11
+    a768 = packed(rng, 768, 768)
+    yield ("solve_left 768 x 1", "solve_left",
+           [(a768, 768), (packed(rng, 768, 32), 1)], 11)
+    yield "invert 768", "invert", [(a768, 768)], 11
+    yield ("trsm_upper_left 768 x 64", "trsm_upper_left",
+           [(unit_diagonal(a768), 768), (packed(rng, 768, 64), 64)], 11)
+
+
+def flat(out) -> list:
+    """The tensors and ints of an entry point's result, in order."""
+    parts = out if isinstance(out, tuple) else (out,)
+    return [getattr(x, "data", x) for x in parts]
+
+
+def same_output(a, b) -> bool:
+    return all(torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+               for x, y in zip(flat(a), flat(b)))
+
+
+def solver_in_turns(old_pkg, rng) -> None:
+    for label, name, operands, runs in solver_cases(rng):
+        args_n = [new_pkg.from_packed(w, n) for w, n in operands]
+        args_o = [old_pkg.from_packed(w, n) for w, n in operands]
+        fn_n, fn_o = getattr(new_pkg, name), getattr(old_pkg, name)
+        same = same_output(fn_o(*args_o), fn_n(*args_n))
+        t = in_turns(lambda: fn_o(*args_o), lambda: fn_n(*args_n), host_ms,
+                     runs=runs)
+        emit("single_solver", entry=label, equal=same, **t)
+        del args_n, args_o
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", required=True)
     ap.add_argument("--quick", action="store_true",
                     help="kernels only, no factorizations")
+    ap.add_argument("--solver", action="store_true",
+                    help="the single-matrix solver entry points only")
     ap.add_argument("--seed", type=int, default=17)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -130,6 +198,9 @@ def main() -> None:
         capture_output=True, text=True).stdout.strip()
     emit("card", card=card, torch=torch.__version__)
     rng = np.random.default_rng(args.seed)
+    if args.solver:
+        solver_in_turns(old_pkg, rng)
+        return
 
     # ---- the GEMM wrappers, then the products a user calls
     for label, (m, k, n) in GEMM_SHAPES:

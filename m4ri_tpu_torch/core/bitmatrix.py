@@ -33,6 +33,7 @@ __all__ = [
     "write_bit", "submatrix", "stack", "concat", "row_swap", "col_swap",
     "mask_padding", "density", "shift_columns_left", "shift_columns_right",
     "randomize_custom", "resolve_device", "popcount32", "xor_reduce",
+    "keep_below", "padding_words",
 ]
 
 
@@ -70,16 +71,16 @@ def _words(a: np.ndarray, device) -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class BitMatrix:
-    data: torch.Tensor  # int32[nrows, width]
+    data: torch.Tensor  # int32[nrows, width]; a stack [..., nrows, width]
     ncols: int
 
     @property
     def nrows(self) -> int:
-        return self.data.shape[0]
+        return self.data.shape[-2]
 
     @property
     def width(self) -> int:
-        return self.data.shape[1]
+        return self.data.shape[-1]
 
     @property
     def shape(self) -> tuple[int, int]:
@@ -144,10 +145,31 @@ def from_packed(data, ncols: int, device=None) -> BitMatrix:
     return mask_padding(BitMatrix(data, ncols))
 
 
+def keep_below(bounds: torch.Tensor, nwords: int) -> torch.Tensor:
+    """Packed int32 [..., nwords] row masks keeping bit positions k <
+    bounds[...], made on bounds' device (no copy from the host)."""
+    w = torch.arange(nwords, device=bounds.device)
+    rem = (bounds[..., None] - w * WORD_BITS).clamp(0, WORD_BITS)
+    mask = (torch.ones_like(rem) << rem) - 1          # int64: no shift by 32
+    return torch.where(mask > 2**31 - 1, mask - 2**32, mask).to(torch.int32)
+
+
+def padding_words(ncols: int, device) -> torch.Tensor:
+    """int32 [width(ncols)]: the valid bits of a row (``padding_mask``'s
+    words), made on the device by two fills: no copy from the host, which
+    on the card would wait for the stream."""
+    mask = torch.full((width_for(ncols),), -1, dtype=torch.int32,
+                      device=device)
+    rem = ncols % WORD_BITS
+    if rem:
+        mask[-1:].fill_((1 << rem) - 1)     # a scalar argument, no copy
+    return mask
+
+
 def mask_padding(m: BitMatrix) -> BitMatrix:
-    """Force padding bits (columns >= ncols) to zero."""
-    mask = _words(padding_mask(m.ncols), m.data.device)
-    return BitMatrix(m.data & mask[None, :], m.ncols)
+    """Force padding bits (columns >= ncols) to zero; leading batch axes of
+    ``m.data`` pass through."""
+    return BitMatrix(m.data & padding_words(m.ncols, m.device), m.ncols)
 
 
 def randomize(nrows: int, ncols: int, generator: torch.Generator,

@@ -22,7 +22,8 @@ import numpy as np
 import torch
 
 from ..utils.config import WORD_BITS
-from .bitmatrix import BitMatrix, mask_padding, submatrix, width_for
+from .bitmatrix import (BitMatrix, keep_below, mask_padding, submatrix,
+                        width_for)
 
 __all__ = [
     "read_bits", "xor_bits", "and_bits", "clear_bits", "row_add",
@@ -114,13 +115,12 @@ def row_add_offset(m: BitMatrix, dst, src, offset: int) -> BitMatrix:
 
 def _triangle_mask(k: int, upper: bool, device) -> torch.Tensor:
     """Packed int32[k, width(k)] mask of the (inclusive) triangle: upper
-    keeps the columns >= row, lower the columns <= row.  Each word's mask
-    is looked up in a 33-entry table by its shift."""
-    rows = torch.arange(k, device=device)[:, None]
-    base = torch.arange(width_for(k), device=device)[None, :] * WORD_BITS
-    sh = (rows - base + (0 if upper else 1)).clamp(0, WORD_BITS)
-    table = torch.from_numpy(_HIGH if upper else _LOW).to(device)
-    return table[sh]
+    keeps the columns >= row, lower the columns <= row.  Made on the device
+    (no copy from the host, so a batched caller does not wait for it)."""
+    rows = torch.arange(k, device=device)
+    if upper:
+        return ~keep_below(rows, width_for(k))
+    return keep_below(rows + 1, width_for(k))
 
 
 def extract_u(m: BitMatrix) -> BitMatrix:

@@ -23,17 +23,19 @@ import torch
 
 from ..ops.mul import pack_bits, unpack_bits
 from ..utils.config import WORD_BITS
-from .bitmatrix import BitMatrix, mask_padding
+from .bitmatrix import BitMatrix, mask_padding, padding_words
 
 __all__ = [
     "swaps_to_perm", "invert_perm", "apply_p_left", "apply_p_left_trans",
     "apply_p_right", "apply_p_right_trans", "apply_p_right_trans_tri",
-    "permute_rows", "permute_cols",
+    "permute_rows", "permute_cols", "swaps_to_perm_batched",
+    "apply_p_left_batched", "apply_p_right_trans_tri_batched",
 ]
 
-# elements of each (rows x ncols) temporary of apply_p_right_trans_tri; the
-# gather's int64 index is the largest, 1 GB at this size.  Module-level so
-# tests can shrink it to force several chunks.
+# elements of each (rows x ncols) temporary of apply_p_right_trans_tri (of
+# each [B, rows, ncols] one of its batched form); the gather's int64 index
+# is the largest, 1 GB at this size.  Module-level so tests can shrink it to
+# force several chunks.
 _TRANS_TRI_CHUNK_ELEMS = 1 << 27
 _SENTINEL = 2**31 - 1
 
@@ -214,3 +216,93 @@ def apply_p_right_trans_tri(m: BitMatrix, v: torch.Tensor) -> BitMatrix:
         out[r1:r1 + rows] = torch.gather(bits[r1:r1 + rows], 1, src)
     packed = pack_bits(out)
     return mask_padding(BitMatrix(packed[:, : m.width], ncols))
+
+
+# ---- batched forms: a leading batch axis, every element its own swap array
+# on the device; element i equals the single function on element i ----
+
+
+def swaps_to_perm_batched(v: torch.Tensor) -> torch.Tensor:
+    """``swaps_to_perm(v[i], True)`` for every row i of the int ``[B, n]``
+    swap arrays: the same pointer doubling along the last axis."""
+    B, n = v.shape
+    dev = v.device
+    if n == 0:
+        return torch.zeros((B, 0), dtype=torch.int32, device=dev)
+    v = v.long()
+    idx = torch.arange(n, device=dev).expand(B, n)
+    order = torch.argsort(v, dim=1, stable=True)
+    sv = v.gather(1, order)
+    prev_sorted = torch.where((idx > 0) & (sv == sv.roll(1, 1)),
+                              order.roll(1, 1), -1)
+    pred = torch.empty_like(prev_sorted).scatter_(1, order, prev_sorted)
+    last = torch.full((B, n), -1, dtype=torch.long, device=dev).scatter_reduce(
+        1, v, idx, "amax")
+    tp = torch.where(v == idx, pred, last)
+    f = torch.where(tp >= 0, tp, idx)
+    for _ in range(_doubling_steps(n)):
+        f = f.gather(1, f)
+    return torch.where(pred >= 0, f.gather(1, pred.clamp(min=0)),
+                       v).to(torch.int32)
+
+
+def apply_p_left_batched(data: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Row swaps ascending on every element: ``apply_p_left(data[i],
+    v[i])`` for packed ``[B, m, w]`` and swap arrays ``[B, >= m]``."""
+    perm = swaps_to_perm_batched(v[:, : data.shape[1]]).long()
+    return data.gather(1, perm[:, :, None].expand(-1, -1, data.shape[2]))
+
+
+def apply_p_right_trans_tri_batched(data: torch.Tensor, ncols: int,
+                                    v: torch.Tensor) -> torch.Tensor:
+    """``apply_p_right_trans_tri(BitMatrix(data[i], ncols), v[i])`` for
+    every element of packed ``[B, nrows, w]``, each v[i] a PLE Q.  The
+    single form's path ids, scatter and running minimum with the batch in
+    front: the scatter's flat index is offset by the element, the minimum
+    runs down each element's rows, and the row chunk counts the batch, so
+    each temporary stays at ``_TRANS_TRI_CHUNK_ELEMS`` elements."""
+    B, nrows, w = data.shape
+    dev = data.device
+    if B == 0 or nrows == 0 or ncols == 0:
+        return data.clone()
+    n = min(ncols, v.shape[1])
+    c = torch.arange(ncols, device=dev)
+    v_ext = torch.cat([v[:, :n].long(), c[n:].expand(B, -1)], dim=1)
+    real = v_ext > c
+    # pre[b, x] = the real step of element b targeting column x
+    pre = torch.full((B, ncols + 1), -1, dtype=torch.long, device=dev)
+    pre = pre.scatter_reduce(1, torch.where(real, v_ext, ncols),
+                             c.expand(B, -1), "amax")[:, :ncols]
+    f = torch.where(pre >= 0, pre, c)
+    for _ in range(_doubling_steps(ncols)):
+        f = f.gather(1, f)
+    pathid = f
+    node_row = (c - 1).clamp(0, nrows - 1)
+    node_val = torch.where(c >= 1, c, _SENTINEL).to(torch.int32)
+    bits = unpack_bits(data, torch.uint8)[:, :, :ncols]
+    chunk = max(1, min(nrows, _TRANS_TRI_CHUNK_ELEMS // (B * ncols)))
+    carry = torch.full((B, ncols), _SENTINEL, dtype=torch.int32, device=dev)
+    out = torch.empty((B, nrows, ncols), dtype=torch.uint8, device=dev)
+    c32 = c.to(torch.int32)
+    boff = torch.arange(B, device=dev)[:, None]
+    for r1 in reversed(range(0, nrows, chunk)):
+        rows = min(chunk, nrows - r1)
+        local = node_row - r1
+        ok = (local >= 0) & (local < rows)
+        # the nodes outside the chunk land in one slot past the end
+        dump = B * rows * ncols
+        flat = torch.where(ok, (boff * rows + local) * ncols + pathid, dump)
+        A = torch.full((dump + 1,), _SENTINEL, dtype=torch.int32, device=dev)
+        A = A.scatter_reduce(0, flat.reshape(-1),
+                             node_val.expand(B, -1).reshape(-1), "amin")
+        A = A[:dump].view(B, rows, ncols).flip(1).cummin(dim=1).values.flip(1)
+        A = torch.minimum(A, carry[:, None])
+        carry = A[:, 0]
+        sel = torch.minimum(A.gather(2, pathid[:, None].expand(-1, rows, -1)),
+                            c32)
+        del A
+        ridx = torch.arange(r1, r1 + rows, device=dev)[:, None]
+        src = torch.where(real[:, None] & (ridx < c), v_ext[:, None], sel)
+        out[:, r1:r1 + rows] = torch.gather(bits[:, r1:r1 + rows], 2, src)
+    packed = pack_bits(out)[:, :, :w]
+    return packed & padding_words(ncols, dev)

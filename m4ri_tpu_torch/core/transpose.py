@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from ..utils.config import WORD_BITS
-from .bitmatrix import BitMatrix, mask_padding, width_for
+from .bitmatrix import BitMatrix, padding_words, width_for
 
 _STAGES = (
     (16, 0x0000FFFF),
@@ -48,15 +48,25 @@ def _transpose32_tiles(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def transpose(mat: BitMatrix) -> BitMatrix:
-    """B = A^T (reference: mzd_transpose, mzd.c:1118-1139)."""
-    nr, nc, w = mat.nrows, mat.ncols, mat.width
+def transpose_words(data: torch.Tensor, nrows: int, ncols: int
+                    ) -> torch.Tensor:
+    """The packed words of A^T: int32[..., nrows, width(ncols)] ->
+    int32[..., ncols, width(nrows)], leading batch axes passed through.
+    The padding mask is made on the device (no copy from the host)."""
+    *lead, nr, w = data.shape
     mr = (nr + WORD_BITS - 1) // WORD_BITS
-    data = mat.data
     if mr * WORD_BITS != nr:
         data = torch.nn.functional.pad(data, (0, 0, 0, mr * WORD_BITS - nr))
-    tiles = data.reshape(mr, WORD_BITS, w)
-    u = _transpose32_tiles(tiles)  # (mr, 32, w): [a, s, b] bit r = A(32a+r, 32b+s)
-    out = u.permute(2, 1, 0).reshape(w * WORD_BITS, mr)
-    out = out[:nc, : width_for(nr)]
-    return mask_padding(BitMatrix(out.contiguous(), nr))
+    tiles = data.reshape(*lead, mr, WORD_BITS, w)
+    u = _transpose32_tiles(tiles)  # [..., a, s, b] bit r = A(32a+r, 32b+s)
+    k = len(lead)
+    out = u.permute(*range(k), k + 2, k + 1, k).reshape(*lead, w * WORD_BITS,
+                                                        mr)
+    out = out[..., :ncols, : width_for(nrows)]
+    return out & padding_words(nrows, data.device)
+
+
+def transpose(mat: BitMatrix) -> BitMatrix:
+    """B = A^T (reference: mzd_transpose, mzd.c:1118-1139)."""
+    return BitMatrix(transpose_words(mat.data, mat.nrows, mat.ncols),
+                     mat.nrows)

@@ -40,7 +40,10 @@ from __future__ import annotations
 
 import torch
 
-from ..core.bitmatrix import width_for
+from ..core.bitmatrix import padding_words, width_for
+from ..core.permutation import (_doubling_steps,
+                                apply_p_right_trans_tri_batched)
+from ..core.transpose import transpose_words
 from ..ops.hopper_mul import gf2_mul_plain
 from ..ops.hopper_panel import panel_loop_batched_plain, panel_loop_hopper_batched
 from ..ops.hopper_post import panel_post_batched_plain, panel_post_hopper_batched
@@ -48,10 +51,12 @@ from ..ops.hopper_schur import (gf2_schur_update_batched_hopper,
                                 gf2_schur_update_plain)
 from ..ops.mul import pack_bits, unpack_bits
 from ..utils.config import WORD_BITS, get_config
-from .ple import (ENGINES, _round_up, _unit_upper_inv, panel_consts,
-                  panel_widths, post_operands, run_panel_loop)
+from .ple import (ENGINES, _round_up, _row_ge_mask,
+                  _unit_upper_inv, panel_consts, panel_widths, post_operands,
+                  run_panel_loop)
 
-__all__ = ["mul_packed_batched", "block_factor_batched", "rank_batched"]
+__all__ = ["mul_packed_batched", "block_factor_batched", "rank_batched",
+           "ple_batched", "pluq_batched"]
 
 
 def _check_stack(name: str, t: torch.Tensor) -> None:
@@ -241,3 +246,63 @@ def rank_batched(data: torch.Tensor, ncols: int) -> torch.Tensor:
     """The rank of every element of a batch, int32 ``[B]`` on the device:
     ``block_factor_batched(data, ncols, preserve_l=False)``'s ``r``."""
     return block_factor_batched(data, ncols, preserve_l=False)[3]
+
+
+def _compress_l_batched(data: torch.Tensor, q: torch.Tensor, r: torch.Tensor,
+                        m: int, n: int) -> torch.Tensor:
+    """``_compress_l_impl(data[i], q[i], r[i], m, n)`` for every element
+    (models/ple.py): the same two column gathers on the packed transpose,
+    with the source events, the pointer doubling and the row thresholds per
+    element ([B, n] index tensors) and the rank as an int32 ``[B]``."""
+    rmax = min(m, n)
+    B = data.shape[0]
+    if rmax == 0 or B == 0:
+        return data
+    dev = data.device
+    c = torch.arange(n, dtype=torch.int64, device=dev)
+    t = torch.arange(rmax, dtype=torch.int64, device=dev)
+    qv = q[:, :rmax].long()
+    real = (t < r[:, None]) & (qv != t)
+    # src_event[b, c] = the j with Q_b[j] = c (a real swap), else n; the
+    # others land in one slot past the end, which is cut off
+    src_event = torch.full((B, n + 1), n, dtype=torch.int64, device=dev)
+    src_event.scatter_(1, torch.where(real, qv, n), t.expand(B, -1))
+    src_event = src_event[:, :n]
+    f = torch.where(src_event[:, :rmax] < n, src_event[:, :rmax], t)
+    for _ in range(_doubling_steps(rmax)):
+        f = f.gather(1, f)
+    sv = src_event < n
+    o1 = torch.where(sv, f.gather(1, src_event.clamp(0, rmax - 1)), c)
+    tv = torch.nn.functional.pad(real, (0, n - rmax))
+    o2 = torch.where(tv, torch.nn.functional.pad(qv, (0, n - rmax)), c)
+
+    dt = transpose_words(data[:, :, : width_for(n)], m, n)   # [B, n, w(m)]
+    wm = dt.shape[2]
+    g1, g2 = _rows(dt, o1), _rows(dt, o2)
+    m1 = _row_ge_mask(torch.where(sv, src_event, m).to(torch.int32), wm)
+    m2 = _row_ge_mask(torch.where(tv, c, m).to(torch.int32), wm)
+    out_t = (dt & ~m1 & ~m2) | (g1 & m1 & ~m2) | (g2 & m2)
+    packed = transpose_words(out_t, n, m)
+    w = data.shape[2]
+    if packed.shape[2] < w:
+        packed = torch.nn.functional.pad(packed, (0, w - packed.shape[2]))
+    return packed[:, :, :w]
+
+
+def ple_batched(data: torch.Tensor, ncols: int, nb: int | None = None):
+    """``ple`` of every element of a batch: ``(M [B, m, w], P int32 [B, m],
+    Q int32 [B, ncols], r int32 [B])``, element i word for word
+    ``ple(BitMatrix(data[i], ncols), nb)``.  ``block_factor_batched`` with
+    L kept, then the L compression of every element at once; no read-back
+    beyond the sweep's."""
+    d, p, q, r = block_factor_batched(data, ncols, preserve_l=True, nb=nb)
+    d = _compress_l_batched(d, q, r, data.shape[1], ncols)
+    return d & padding_words(ncols, d.device), p, q, r
+
+
+def pluq_batched(data: torch.Tensor, ncols: int, nb: int | None = None):
+    """``pluq`` of every element of a batch: ``ple_batched`` with each
+    element's pivot columns moved onto the diagonal of its triangular
+    region (``apply_p_right_trans_tri_batched`` with the element's Q)."""
+    d, p, q, r = ple_batched(data, ncols, nb=nb)
+    return apply_p_right_trans_tri_batched(d, ncols, q), p, q, r

@@ -343,11 +343,12 @@ def _compress_l_seq(data: torch.Tensor, q: torch.Tensor, r: int, m: int,
 
 
 def _row_ge_mask(th: torch.Tensor, wm: int) -> torch.Tensor:
-    """int32[n, wm]: bit i of row c set iff i >= th[c]."""
-    wi = torch.arange(wm, dtype=torch.int32, device=th.device)[None, :]
+    """int32[..., n, wm]: bit i of row c set iff i >= th[..., c]."""
+    wi = torch.arange(wm, dtype=torch.int32, device=th.device)
+    th = th[..., None]
     ones = torch.full((), -1, dtype=torch.int32, device=th.device)
-    full = torch.where(wi >= (th[:, None] + 31) // 32, ones, 0)
-    part = torch.where(wi == th[:, None] // 32, ones << (th[:, None] % 32), 0)
+    full = torch.where(wi >= (th + 31) // 32, ones, 0)
+    part = torch.where(wi == th // 32, ones << (th % 32), 0)
     return full | part
 
 

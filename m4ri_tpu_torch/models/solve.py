@@ -19,9 +19,9 @@ from __future__ import annotations
 import torch
 
 from ..core.bitmatrix import BitMatrix, identity, mask_padding, width_for
+from ..core.bitmatrix import keep_below as _keep_below
 from ..core.permutation import apply_p_left
 from ..ops.mul import pack_bits
-from ..utils.config import WORD_BITS
 from .echelon import echelonize_with_pivots, select_pivot_cols
 from .ple import block_factor
 from .triangular import trsm_lower_left, trsm_upper_left
@@ -29,18 +29,12 @@ from .triangular import trsm_lower_left, trsm_upper_left
 __all__ = ["solve_left", "kernel_left", "pluq_solve_left"]
 
 
-def _keep_below(bounds: torch.Tensor, nwords: int) -> torch.Tensor:
-    """Packed int32 row masks keeping bit positions k < bounds[i]."""
-    w = torch.arange(nwords, device=bounds.device)
-    rem = (bounds[:, None] - w[None, :] * WORD_BITS).clamp(0, WORD_BITS)
-    mask = (torch.ones_like(rem) << rem) - 1          # int64: no shift by 32
-    return torch.where(mask > 2**31 - 1, mask - 2**32, mask).to(torch.int32)
-
-
 def _pad_words(data: torch.Tensor, nwords: int) -> torch.Tensor:
-    if data.shape[1] < nwords:
-        return torch.nn.functional.pad(data, (0, nwords - data.shape[1]))
-    return data[:, :nwords]
+    """The first ``nwords`` words of each row, zero-padded (leading axes
+    pass through)."""
+    if data.shape[-1] < nwords:
+        return torch.nn.functional.pad(data, (0, nwords - data.shape[-1]))
+    return data[..., :nwords]
 
 
 def _packed_l(data: torch.Tensor, q: torch.Tensor, r: int, m: int, rmax: int,

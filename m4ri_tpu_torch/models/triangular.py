@@ -19,6 +19,12 @@ least a quarter as wide as T), then multiplies by the block's inverse.  The
 large products go through ``ops/mul.py::mul``, so on the card through the
 GF(2) GEMM kernel and Strassen.  Blocks are views of their parent (every
 split is on a word boundary); nothing writes to an argument.
+
+The recursion indexes the last two axes only, so a stack of matrices
+(``BitMatrix`` with data ``[B, rows, words]``) runs through it unchanged when
+``mul_fn`` multiplies stacks: models/batched_solve.py passes
+``mul_packed_batched`` and so gets every element's TRSM / TRTRI on the same
+static splits.
 """
 
 from __future__ import annotations
@@ -54,13 +60,14 @@ def _block(t: BitMatrix, r0: int, c0: int, r1: int, c1: int) -> BitMatrix:
     """Rows [r0, r1) x columns [c0, c1) as a view; c0 is a multiple of 32
     and c1 too, or the last column, so the padding bits stay zero."""
     assert c0 % WORD_BITS == 0 and (c1 % WORD_BITS == 0 or c1 == t.ncols)
-    return BitMatrix(t.data[r0:r1, c0 // WORD_BITS: width_for(c1)], c1 - c0)
+    return BitMatrix(t.data[..., r0:r1, c0 // WORD_BITS: width_for(c1)],
+                     c1 - c0)
 
 
 def _tri_inv_base(tdata: torch.Tensor, n: int) -> torch.Tensor:
     """Invert unit-triangular packed n x n via the nilpotent series."""
     eye = torch.eye(n, dtype=torch.int8, device=tdata.device)
-    nil = unpack_bits(tdata, torch.int8)[:, :n] ^ eye
+    nil = unpack_bits(tdata, torch.int8)[..., :n] ^ eye
     steps = max(0, (n - 1).bit_length() - 1)
     return pack_bits(_unit_upper_inv(nil, eye, steps))
 
@@ -71,7 +78,8 @@ def _split(n: int) -> int:
 
 def _trtri(t: BitMatrix, upper: bool, mul_fn=mul, cfg=None) -> BitMatrix:
     """2x2 word-aligned recursion.  ``mul_fn`` makes the block products:
-    the distributed layer passes its mesh product (parallel/dist_solve.py)."""
+    the distributed layer passes its mesh product (parallel/dist_solve.py),
+    the batched one ``mul_packed_batched`` (models/batched_solve.py)."""
     cfg = cfg or get_config()
     n = t.ncols
     assert t.nrows == n
@@ -81,15 +89,16 @@ def _trtri(t: BitMatrix, upper: bool, mul_fn=mul, cfg=None) -> BitMatrix:
     w1 = n1 // WORD_BITS
     ai = _trtri(_block(t, 0, 0, n1, n1), upper, mul_fn, cfg)
     di = _trtri(_block(t, n1, n1, n, n), upper, mul_fn, cfg)
-    out = torch.zeros((n, width_for(n)), dtype=torch.int32, device=t.device)
-    out[:n1, :w1] = ai.data
-    out[n1:, w1:] = di.data
+    out = torch.zeros((*t.data.shape[:-2], n, width_for(n)),
+                      dtype=torch.int32, device=t.device)
+    out[..., :n1, :w1] = ai.data
+    out[..., n1:, w1:] = di.data
     if upper:
         b = _block(t, 0, n1, n1, n)
-        out[:n1, w1:] = mul_fn(mul_fn(ai, b), di).data        # Ai B Di (n1 x n2)
+        out[..., :n1, w1:] = mul_fn(mul_fn(ai, b), di).data  # Ai B Di
     else:
         c = _block(t, n1, 0, n, n1)
-        out[n1:, :w1] = mul_fn(mul_fn(di, c), ai).data        # Di C Ai (n2 x n1)
+        out[..., n1:, :w1] = mul_fn(mul_fn(di, c), ai).data  # Di C Ai
     return mask_padding(BitMatrix(out, n))
 
 
@@ -107,8 +116,8 @@ def _trsm_left_rec(t: BitMatrix, b: BitMatrix, upper: bool, mul_fn=mul,
     n1 = _split(n)
     a = _block(t, 0, 0, n1, n1)
     d = _block(t, n1, n1, n, n)
-    b_top = BitMatrix(b.data[:n1], b.ncols)
-    b_bot = BitMatrix(b.data[n1:], b.ncols)
+    b_top = BitMatrix(b.data[..., :n1, :], b.ncols)
+    b_bot = BitMatrix(b.data[..., n1:, :], b.ncols)
     if upper:
         # [A B; 0 D] [X1; X2] = [R1; R2]
         x2 = _trsm_left_rec(d, b_bot, upper, mul_fn, cfg)
@@ -119,7 +128,8 @@ def _trsm_left_rec(t: BitMatrix, b: BitMatrix, upper: bool, mul_fn=mul,
         x1 = _trsm_left_rec(a, b_top, upper, mul_fn, cfg)
         r2 = b_bot.data ^ mul_fn(_block(t, n1, 0, n, n1), x1).data
         x2 = _trsm_left_rec(d, BitMatrix(r2, b.ncols), upper, mul_fn, cfg)
-    return mask_padding(BitMatrix(torch.cat([x1.data, x2.data]), b.ncols))
+    return mask_padding(BitMatrix(torch.cat([x1.data, x2.data], dim=-2),
+                                  b.ncols))
 
 
 def _trsm_right_rec(t: BitMatrix, b: BitMatrix, upper: bool, mul_fn=mul,
@@ -147,7 +157,7 @@ def _trsm_right_rec(t: BitMatrix, b: BitMatrix, upper: bool, mul_fn=mul,
         x2 = _trsm_right_rec(d, b_r, upper, mul_fn, cfg)
         r1 = b_l.data ^ mul_fn(x2, _block(t, n1, 0, n, n1)).data
         x1 = _trsm_right_rec(a, BitMatrix(r1, n1), upper, mul_fn, cfg)
-    return mask_padding(BitMatrix(torch.cat([x1.data, x2.data], dim=1), n))
+    return mask_padding(BitMatrix(torch.cat([x1.data, x2.data], dim=-1), n))
 
 
 def trtri_upper(t: BitMatrix) -> BitMatrix:

@@ -141,3 +141,21 @@ def test_mask_padding_and_from_packed(rng):
     assert_padding_zero(T)
     T2 = mt.from_packed(torch.from_numpy(raw.view(np.int32)), 70, device="cpu")
     assert_same(J, T2)
+
+
+@pytest.mark.parametrize("ncols", [1, 31, 32, 33, 70, 96, 257])
+def test_padding_words_and_stacks(rng, ncols):
+    """``padding_words`` (made on the tensor's device) equals the JAX
+    package's ``padding_mask``, and ``mask_padding`` of a stack [B, rows,
+    words] masks every element as the JAX one masks it alone."""
+    want = jbm.padding_mask(ncols).view(np.int32)
+    assert np.array_equal(tbm.padding_words(ncols, "cpu").numpy(), want)
+    raw = rng.integers(0, 2**32, (3, 5, tbm.width_for(ncols)),
+                       dtype=np.uint64).astype(np.uint32)
+    got = tbm.mask_padding(tbm.BitMatrix(torch.from_numpy(raw.view(np.int32)),
+                                         ncols))
+    assert got.nrows == 5 and got.width == raw.shape[2]
+    for i in range(3):
+        J = jbm.mask_padding(jbm.BitMatrix(raw[i], ncols))
+        assert np.array_equal(got.data[i].numpy(),
+                              np.asarray(J.data).view(np.int32))

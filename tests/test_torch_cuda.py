@@ -669,6 +669,13 @@ def test_compat_names_equal_the_cpu_port(card, name, args):
 
 # ---- the batched path: kernels a, b, c and the sweep -----------------------
 
+def _sync_waits(caught):
+    """Warnings of the sync debug mode that name a call that waited for the
+    card; its one-time notice that the mode is a prototype is not one."""
+    return sum("called a synchronizing CUDA operation" in str(w.message)
+               for w in caught)
+
+
 def _stack(seed, B, rows, cols, dev):
     return torch.stack([_packed(seed + i, rows, cols, dev) for i in range(B)])
 
@@ -789,8 +796,133 @@ def test_batched_sweep_counts_every_read_back(card):
             fn(data, n, True)
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    waits = sum("synchroniz" in str(w.message) for w in caught)
+    waits = _sync_waits(caught)
     panels = -(-n // batched.panel_widths(m, n)[0])
     assert fn.miss_fallbacks > f0
     assert waits == fn.host_syncs - s0
     assert panels < waits <= 2 * panels
+
+
+# ---- the batched solver API: every element against the single call ---------
+
+def _batched_solver_calls(card):
+    """{entry: (batched call, single call of element i, batch size)} on one
+    small stack a kind, with a zero element and a deficient one."""
+    import m4ri_tpu_torch as mt
+    B, m, n = 4, 600, 900
+    a = _stack(190, B, m, n, card)
+    a[1] = 0
+    a[2, 100:] = a[2, :m - 100].clone()
+    sq = a[:, :, : (m + 31) // 32].clone()
+    sq[:, :, -1] &= (1 << (m % 32)) - 1
+    b = _stack(191, B, m, 3, card)
+    t = _stack(192, B, m, m, card)
+    idx = torch.arange(m, device=card)
+    t[:, idx, idx // 32] |= torch.ones_like(idx, dtype=torch.int32) << (
+        idx % 32).to(torch.int32)
+    t[:, :, -1] &= (1 << (m % 32)) - 1
+    bl, br = _stack(193, B, m, 40, card), _stack(194, B, 40, m, card)
+    M = lambda x, c: mt.BitMatrix(x, c)     # noqa: E731
+    pl = mt.pluq_batched(a, n)
+    calls = {
+        "ple": (lambda: mt.ple_batched(a, n), lambda i: mt.ple(M(a[i], n))),
+        "pluq": (lambda: mt.pluq_batched(a, n), lambda i: mt.pluq(M(a[i], n))),
+        "rref_m4ri": (lambda: mt.echelonize_batched(a, n),
+                      lambda i: mt.echelonize(M(a[i], n))),
+        "ref_pluq": (lambda: mt.echelonize_batched(a, n, full=False,
+                                                   strategy="pluq"),
+                     lambda i: mt.echelonize(M(a[i], n), full=False,
+                                             strategy="pluq")),
+        "kernel_left": (lambda: mt.kernel_left_batched(a, n),
+                        lambda i: mt.kernel_left(M(a[i], n))),
+        "solve_left": (lambda: mt.solve_left_batched(a, n, b, 3),
+                       lambda i: mt.solve_left(M(a[i], n), M(b[i], 3))),
+        "pluq_solve_left": (
+            lambda: mt.pluq_solve_left_batched(pl[0], n, pl[1], pl[2], pl[3],
+                                               b, 3),
+            lambda i: mt.pluq_solve_left(M(pl[0][i], n), pl[1][i], pl[2][i],
+                                         int(pl[3][i]), M(b[i], 3))),
+        "invert": (lambda: mt.invert_batched(sq),
+                   lambda i: mt.invert(M(sq[i], m))),
+        "trtri_upper": (lambda: mt.trtri_upper_batched(t),
+                        lambda i: mt.trtri_upper(M(t[i], m))),
+        "trsm_lower_left": (lambda: mt.trsm_lower_left_batched(t, bl, 40),
+                            lambda i: mt.trsm_lower_left(M(t[i], m),
+                                                         M(bl[i], 40))),
+        "trsm_upper_right": (lambda: mt.trsm_upper_right_batched(t, br, m),
+                             lambda i: mt.trsm_upper_right(M(t[i], m),
+                                                           M(br[i], m))),
+    }
+    return calls, B
+
+
+BATCHED_SOLVERS = ["ple", "pluq", "rref_m4ri", "ref_pluq", "kernel_left",
+                   "solve_left", "pluq_solve_left", "invert", "trtri_upper",
+                   "trsm_lower_left", "trsm_upper_right"]
+
+
+@pytest.mark.parametrize("entry", BATCHED_SOLVERS)
+def test_batched_solver_equals_single_on_the_card(card, entry):
+    """Each element of a batched call equals the single-matrix call on the
+    card, part by part; ranks, flags and counts stay on the card."""
+    import warnings
+
+    from m4ri_tpu_torch.core.bitmatrix import BitMatrix
+    from m4ri_tpu_torch.models import batched
+    calls, B = _batched_solver_calls(card)
+    batched_fn, single_fn = calls[entry]
+    batched_fn()                            # kernels built
+    torch.cuda.synchronize()
+    fn = batched.block_factor_batched
+    s0 = fn.host_syncs
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            got = batched_fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    waits = _sync_waits(caught)
+    assert waits == fn.host_syncs - s0
+    got = got if isinstance(got, tuple) else (got,)
+    for part in got:
+        assert part.device.type == "cuda"
+    for i in range(B):
+        want = single_fn(i)
+        want = want if isinstance(want, tuple) else (want,)
+        for g, w in zip(got, want):
+            w = w.data if isinstance(w, BitMatrix) else w
+            if isinstance(w, torch.Tensor):
+                assert torch.equal(g[i], w.to(g.dtype)), (entry, i)
+            else:
+                assert int(g[i]) == w, (entry, i)
+
+
+@pytest.mark.parametrize("n", [70, 96, 4100])
+def test_masks_are_made_on_the_card_without_waiting(card, n):
+    """The padding and triangle masks and a transpose wait for nothing on
+    the card (a mask copied from a host table waited for the stream, at
+    every level of the TRSM recursion), and equal the CPU port's."""
+    import warnings
+
+    from m4ri_tpu_torch.core.bitmatrix import BitMatrix, mask_padding
+    from m4ri_tpu_torch.core.bitops import _triangle_mask
+    from m4ri_tpu_torch.core.transpose import transpose
+    raw = _packed(11, 3 * n, n, "cpu") | -1                 # padding bits set
+    x = BitMatrix(raw.to(card).view(3, n, -1), n)
+    fns = [lambda x: mask_padding(x).data,
+           lambda x: _triangle_mask(n, True, x.device),
+           lambda x: _triangle_mask(n, False, x.device),
+           lambda x: transpose(mask_padding(BitMatrix(x.data[1], n))).data]
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            got = [fn(x) for fn in fns]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert _sync_waits(caught) == 0
+    host = BitMatrix(raw.view(3, n, -1), n)
+    for g, fn in zip(got, fns):
+        assert torch.equal(g.cpu(), fn(host))

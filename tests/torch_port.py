@@ -8,11 +8,16 @@ import types
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+import jax
+import jax.numpy as jnp
 
 import m4ri_tpu as mj
 import m4ri_tpu_torch as mt
 from m4ri_tpu_torch.core.bitmatrix import padding_mask
 
+import oracle
 from conftest import random_dense
 
 
@@ -97,3 +102,91 @@ def jax_mesh(rows, cols):
     from jax.sharding import Mesh
     return Mesh(np.array(jax.devices()[:rows * cols]).reshape(rows, cols),
                 ("x", "y"))
+
+
+# ---- batched stacks (test_torch_batched_*.py) --------------------------------
+
+def stacks(mats):
+    """numpy 0/1 [B, m, n] -> (JAX packed stack, port packed stack on the
+    CPU)."""
+    jx = jnp.stack([mj.from_numpy(x).data for x in mats])
+    tx = torch.stack([mt.from_numpy(x, device="cpu").data for x in mats])
+    return jx, tx
+
+
+def same(want, got, what):
+    want = np.asarray(want)
+    got = got.numpy()
+    if want.dtype == np.uint32:
+        got = got.view(np.uint32)
+    assert want.shape == got.shape, (what, want.shape, got.shape)
+    np.testing.assert_array_equal(want, got, err_msg=what)
+
+
+def rank_k(rng, m, n, k):
+    if k == 0:
+        return np.zeros((m, n), np.uint8)
+    return oracle.mul(random_dense(rng, m, k), random_dense(rng, k, n))
+
+
+def _wide(rng):
+    return np.stack([random_dense(rng, 70, 130), rank_k(rng, 70, 130, 0),
+                     rank_k(rng, 70, 130, 20), random_dense(rng, 70, 130)])
+
+
+def _tall(rng):
+    return np.stack([rank_k(rng, 130, 64, 30), random_dense(rng, 130, 64),
+                     rank_k(rng, 130, 64, 0), random_dense(rng, 130, 64)])
+
+
+def _square(rng):
+    return np.stack([random_dense(rng, 96, 96), rank_k(rng, 96, 96, 50),
+                     rank_k(rng, 96, 96, 0), random_dense(rng, 96, 96),
+                     rank_k(rng, 96, 96, 95)])
+
+
+def _misses(rng):
+    """A zeroed band in element 1 under a narrow panel (NB below): its
+    windows go deficient and those panels are redone at full height."""
+    mats = np.stack([random_dense(rng, 130, 100) for _ in range(3)])
+    mats[1, 20:110] = 0
+    return mats
+
+
+CASES = {"wide": _wide, "tall": _tall, "square": _square, "misses": _misses}
+NB = {"misses": 32}     # the panel width a case asks for (else the default)
+
+
+def data_of(x):
+    """The words of a JAX output (a BitMatrix or an array)."""
+    return getattr(x, "data", x)
+
+
+def jvmap(fn, *stacks_):
+    return jax.vmap(lambda *a: tuple(data_of(o) for o in fn(*a)))(*stacks_)
+
+
+def cpu(a):
+    return mt.from_numpy(a, device="cpu")
+
+
+class Waits(TorchDispatchMode):
+    """Counts the operators that make the host wait for a CUDA device:
+    scalar reads, nonzero and boolean-mask indexing (its size depends on
+    the data), torch.equal."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = func.overloadpacket.__name__
+        if name in ("_local_scalar_dense", "nonzero", "masked_select",
+                    "equal", "is_nonzero"):
+            self.n += 1
+        elif name in ("index", "index_put", "index_put_") and any(
+                isinstance(t, torch.Tensor) and t.dtype == torch.bool
+                for t in (args[1] if len(args) > 1 else ())
+                if t is not None):
+            self.n += 1
+        return func(*args, **(kwargs or {}))

@@ -43,7 +43,16 @@ strategies and ``kernel_left_batched`` of the 256 McEliece matrices,
 with one syndrome each (one Prange guess an element), ``invert_batched`` of
 those 1024 and the TRTRIs and TRSMs of 256 unit triangular 768^2, every
 element equal to the single-matrix call and 8 held to the host's
-Gauss-Jordan elimination or a float32 product.  The launch counters show that
+Gauss-Jordan elimination or a float32 product; then the last of the JAX
+package's ``jax.vmap`` surface: ``top_echelonize_batched`` of the 256
+McEliece matrices brought to REF (the restricted search, windows 42 and 6)
+against their RREF, and of 16 off the contract, and the naive Gauss
+engines over a batch (``invert_naive_batched`` of the 1024 768^2,
+``echelonize_naive_batched`` and ``gauss_delayed_batched`` of the 256
+McEliece matrices) against the batched entry points and the single calls,
+none of them reading anything back; the pivot loop and the elimination
+below the window are held to their batched plain versions once more on the
+restricted search's first panel.  The launch counters show that
 the kernels ran, on the distributed and batched paths too.  One JSON object per phase; the
 ``kernels`` line, the card's name and power limit, and last of all
 ``{"ok": true, "device": {...}}``.  Any mismatch, build failure or launch
@@ -2266,10 +2275,10 @@ def same_as_single(got, data, ncols: int, pres: bool, what: str) -> None:
         check(int(got[3][i]) == want[3], f"{what}: element {i}'s rank")
 
 
-def capture_first_panel(data, ncols: int, pres: bool) -> dict:
+def capture_first_panel(data, ncols: int, pres: bool, **kw) -> dict:
     """The operands the batched sweep gives kernels a, b and c on its first
     panel, cloned as they are handed over (not counted: a run apart from
-    the main path's)."""
+    the main path's); ``kw`` goes to block_factor_batched."""
     seen = {}
     names = {"panel_loop_hopper_batched": 1, "panel_post_hopper_batched": 1,
              "gf2_schur_update_batched_hopper": 2}   # the U rows, the update
@@ -2287,7 +2296,7 @@ def capture_first_panel(data, ncols: int, pres: bool) -> dict:
     for name in names:
         setattr(batched_mod, name, recorder(name))
     try:
-        batched_mod.block_factor_batched(data, ncols, pres)
+        batched_mod.block_factor_batched(data, ncols, pres, **kw)
         torch.cuda.synchronize()
     finally:
         for name, fn in real.items():
@@ -2323,57 +2332,82 @@ def batched_schur_bound(m: int, k: int, nw: int, r0s, c0w: int) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+# the restricted search of top_echelonize at 768 x 3488: the default k,
+# min(opt_k(768, 3488), 7) = 7, searches 6k = 42 rows below the rank
+TOP_WINDOW = 6 * min(opt_k(768, 3488), 7)
+# the record of a kernel's second operand set, nested in its kernels entry
+SUB_KEYS = ("max_abs_err", "matches_plain", "ms", "plain_ms", "bound_ms",
+            "bound_by", "ms_min", "ms_max", "runs", "timed_at", "eliminations")
+
+
 def phase_batched_kernels(seed: int) -> dict:
     """Kernels a, b and c against their batched plain versions on the card,
     on the operands the McEliece batch's first panel gives them (the whole
-    batch), and their times there beside their bounds."""
+    batch), and their times there beside their bounds; then a and b again
+    on the first panel of top_echelonize_batched's sweep of that batch
+    brought to REF: a with the search window of 42 rows, b with the miss
+    check off (a zero column mask: the miss byte must stay 0)."""
     B, m, n = MCELIECE
     data = stack_on_card(seed + 900, B, m, n)
     ops = capture_first_panel(data, n, False)
     report, bad = {}, {}
 
-    def entry(name, fn, plain, timed, timed_plain, bnd, **more):
+    def entry(name, fn, plain, timed, timed_plain, bnd, sub=None, **more):
+        what = name if sub is None else f"{name} ({sub})"
         got, want = fn(), plain()
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
-        bad[name] = max(int(g.shape != w.shape or bool((g != w).any()))
+        bad[what] = max(int(g.shape != w.shape or bool((g != w).any()))
                         for g, w in zip(got, want))
-        check(bad[name] == 0, f"{name} disagrees with its batched plain version")
+        check(bad[what] == 0, f"{what} disagrees with its batched plain version")
         t = time_ms(timed)
         tp = time_ms(timed_plain, runs=3, warmup=1)
-        report[name] = kernel_entry(
+        rec = kernel_entry(
             name, 0, {"ms": t["median"], "plain_ms": tp["median"], **bnd},
             ms_min=t["min"], ms_max=t["max"], runs=t["runs"],
             library_note=NO_LIBRARY, batch=B, **more)
+        if sub is None:
+            report[name] = rec
+        else:
+            report[name][sub] = {k: rec[k] for k in SUB_KEYS if k in rec}
+        return got
 
-    # a: the pivot loop on 256 windows of 576 rows, nb = 512
-    al0, r0, base, mm, nb, pres, sw = ops["panel_loop_hopper_batched"]
-    h, w2 = al0.shape[1:]
-    la = (lambda: hopper_panel.panel_loop_hopper_batched(al0, r0, base, mm, nb,
-                                                         pres, sw))
-    lp_ = (lambda: hopper_panel.panel_loop_batched_plain(al0, r0, base, mm, nb,
-                                                         pres, sw))
-    got = la()
-    # each elimination XORs the pivot row's nb/32 panel words into a row and
-    # sets one multiplier bit: the L half of the output counts them
-    elims = int(popcount32(got[0][:, :, w2 // 2:]).sum())
-    entry("panel_loop_hopper_batched", lambda: got, lp_, la, lp_,
-          roofline(4 * B * (2 * h * w2 + h + 4 * nb + 1),
-                   alu_ops=elims * (w2 // 2)),
-          timed_at=[B, h, w2], eliminations=elims)
-    # b: the elimination below each window, 1792 rows
-    xw, msm, wm, cmb, below0, mvalid = ops["panel_post_hopper_batched"]
-    nbw = xw.shape[2]
-    rows = int((mvalid - below0).clamp(min=0).sum())
-    pb = (lambda: hopper_post.panel_post_hopper_batched(xw, msm, wm, cmb,
-                                                        below0, mvalid))
-    pp = (lambda: hopper_post.panel_post_batched_plain(xw, msm, wm, cmb,
-                                                       below0, mvalid))
-    entry("panel_post_hopper_batched", pb, pp, pb, pp,
-          roofline(B * (4 * 3 * xw.shape[1] * nbw + 2 * (32 * nbw) ** 2
-                        + 32 * nbw + 1), b1_ops=2 * 2 * rows * (32 * nbw) ** 2),
-          timed_at=list(xw.shape))
+    def loop_entry(ops_a, sub=None):
+        """a: the pivot loop on 256 windows of 576 rows, nb = 512."""
+        al0, r0, base, mm, nb, pres, sw = ops_a
+        h, w2 = al0.shape[1:]
+        la = (lambda: hopper_panel.panel_loop_hopper_batched(
+            al0, r0, base, mm, nb, pres, sw))
+        lp_ = (lambda: hopper_panel.panel_loop_batched_plain(
+            al0, r0, base, mm, nb, pres, sw))
+        got = la()
+        # each elimination XORs the pivot row's nb/32 panel words into a row
+        # and sets one multiplier bit: the L half of the output counts them
+        elims = int(popcount32(got[0][:, :, w2 // 2:]).sum())
+        entry("panel_loop_hopper_batched", lambda: got, lp_, la, lp_,
+              roofline(4 * B * (2 * h * w2 + h + 4 * nb + 1),
+                       alu_ops=elims * (w2 // 2)),
+              sub=sub, timed_at=[B, h, w2], eliminations=elims,
+              search_window=sw)
+
+    def post_entry(ops_b, sub=None):
+        """b: the elimination below each window, 1792 rows."""
+        xw, msm, wm, cmb, below0, mvalid = ops_b
+        nbw = xw.shape[2]
+        rows = int((mvalid - below0).clamp(min=0).sum())
+        pb = (lambda: hopper_post.panel_post_hopper_batched(
+            xw, msm, wm, cmb, below0, mvalid))
+        pp = (lambda: hopper_post.panel_post_batched_plain(
+            xw, msm, wm, cmb, below0, mvalid))
+        return entry("panel_post_hopper_batched", pb, pp, pb, pp,
+                     roofline(B * (4 * 3 * xw.shape[1] * nbw
+                                   + 2 * (32 * nbw) ** 2 + 32 * nbw + 1),
+                              b1_ops=2 * 2 * rows * (32 * nbw) ** 2),
+                     sub=sub, timed_at=list(xw.shape))
+
+    loop_entry(ops["panel_loop_hopper_batched"])
+    post_entry(ops["panel_post_hopper_batched"])
     # c: the trailing update, C 768 x 112 words (the real rows: the sweep
     # hands the kernel no padding row), k = 512, c0w = 16; timed in place on
     # one C (the work does not depend on the words)
@@ -2389,6 +2423,20 @@ def phase_batched_kernels(seed: int) -> dict:
           batched_schur_bound(c.shape[1], up.shape[1], c.shape[2],
                               r0s.tolist(), c0w),
           timed_at=list(c.shape) + [up.shape[1]], c0w=c0w)
+    del ops, c, cc, lp, up
+
+    # a and b on the restricted search: top_echelonize_batched's first panel
+    ref = m4.echelonize_batched(data, n, full=False)[0]
+    top = capture_first_panel(ref, n, False, search_window=TOP_WINDOW)
+    check(top["panel_loop_hopper_batched"][-1] == TOP_WINDOW,
+          "the sweep did not hand the pivot loop its search window")
+    check(not bool(top["panel_post_hopper_batched"][3].any()),
+          "the sweep handed the post kernel a column mask under a search "
+          "window")
+    loop_entry(top["panel_loop_hopper_batched"], f"search_window_{TOP_WINDOW}")
+    got = post_entry(top["panel_post_hopper_batched"], "miss_check_off")
+    check(not bool(got[2].any()), "the post kernel flagged a miss with the "
+          "miss check off")
     emit("kernels_batched", kernels=list(report.values()))
     return report
 
@@ -2472,7 +2520,11 @@ def phase_batched_rank_nist(seed: int) -> dict:
 def phase_batched_factor_mceliece(seed: int) -> dict:
     """block_factor_batched of 256 dense random 768 x 3488 matrices, the
     parity-check shape of Classic McEliece mceliece348864, with and without
-    L; every element equal to the single-matrix block_factor on the card."""
+    L; every element equal to the single-matrix block_factor on the card
+    (with L: the first 32, the whole batch being pinned by ple_batched of
+    the same draw, held to the single ple element by element in
+    batched_ple_pluq_mceliece).  The loop of single calls without L is timed
+    with its comparisons."""
     B, m, n = MCELIECE
     data = stack_on_card(seed + 900, B, m, n)
     total, per = {}, {}
@@ -2482,17 +2534,22 @@ def phase_batched_factor_mceliece(seed: int) -> dict:
         add_counts(total, launched)
         check(all(launched[k] > 0 for k in BATCHED),
               f"McEliece preserve_l={pres} launched {launched}")
-        same_as_single(got, data, n, pres, f"McEliece preserve_l={pres}")
+        some = LOOP_SLICE if pres else B
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        same_as_single(tuple(x[:some] for x in got), data[:some], n, pres,
+                       f"McEliece preserve_l={pres}")
+        if not pres:
+            loop_ms = (time.perf_counter() - t0) * 1e3
         per[f"preserve_l={pres}"] = {
             "host_syncs": syncs, "miss_fallbacks": misses, "launches": launched,
-            "peak_memory_gb": peak, "ranks": sorted(set(got[3].tolist()))}
+            "peak_memory_gb": peak, "ranks": sorted(set(got[3].tolist())),
+            "single_calls": some}
     t = time_host_ms(lambda: m4.block_factor_batched(data, n, False), runs=3)
-    loop = time_host_ms(lambda: [m4.block_factor(BitMatrix(data[i], n), False)
-                                 for i in range(B)], runs=1)
     emit("batched_factor_mceliece", ok=True, batch=B, shape=[m, n],
          ms=t, calls_per_s=B / t["median"] * 1e3,
-         loop_of_single_block_factor_ms=loop["median"],
-         batched_over_loop=loop["median"] / t["median"], runs=per)
+         loop_of_single_block_factor_ms=loop_ms,
+         batched_over_loop=loop_ms / t["median"], runs=per)
     return total
 
 
@@ -2708,7 +2765,8 @@ def batched_entry(what: str, batched_fn, single_fn, B: int, report: dict,
     calls.  ``loop`` < B runs the single calls on the first ``loop``
     elements only: for an entry whose whole batch the caller holds to
     another batched result that is itself held to the single call element
-    by element.  Returns the batched result."""
+    by element (``loop`` = 0: no single call).  Returns the batched
+    result."""
     out, launched, syncs, waits, misses, peak, ms0 = batched_call(batched_fn)
     add_counts(total, launched)
     check(all(launched[k] > 0 for k in kernels),
@@ -2722,14 +2780,16 @@ def batched_entry(what: str, batched_fn, single_fn, B: int, report: dict,
     t0 = time.perf_counter()
     singles = [single_fn(i) for i in range(loop)]
     torch.cuda.synchronize()
-    loop_ms = (time.perf_counter() - t0) * 1e3
+    loop_ms = (time.perf_counter() - t0) * 1e3 if loop else None
     parts = out if isinstance(out, tuple) else (out,)
-    same_elements(what, tuple(x[:loop] for x in parts),
-                  [s if isinstance(s, tuple) else (s,) for s in singles])
+    if loop:
+        same_elements(what, tuple(x[:loop] for x in parts),
+                      [s if isinstance(s, tuple) else (s,) for s in singles])
     ms = statistics.median(ts)
     report[what] = {"ms": ms, "runs_ms": ts, "calls_per_s": B / ms * 1e3,
                     "loop_of_single_calls_ms": loop_ms, "loop_elements": loop,
-                    "batched_over_loop": loop_ms / loop * B / ms,
+                    "batched_over_loop": (loop_ms / loop * B / ms if loop
+                                          else None),
                     "host_syncs": syncs, "synchronising_calls": waits,
                     "miss_fallbacks": misses, "peak_memory_gb": peak,
                     "launches": {k: launched[k] for k in BATCHED}}
@@ -2945,6 +3005,106 @@ def phase_batched_invert_trsm(seed: int) -> dict:
     return total
 
 
+def no_read_back(what: str, report: dict) -> None:
+    """The entries of a phase read nothing back: the sweep counts no
+    read-back and PyTorch's sync debug mode sees no synchronising call."""
+    for name, run in report.items():
+        check(run["host_syncs"] == 0 == run["synchronising_calls"],
+              f"{what} {name}: {run['host_syncs']} read-backs counted, "
+              f"{run['synchronising_calls']} synchronising calls")
+
+
+def phase_batched_top_echelonize_mceliece(seed: int) -> dict:
+    """top_echelonize_batched of the McEliece stack brought to REF (the
+    reference's contract, brilliantrussian.h:229-232) at the default k
+    (window 42) and at k = 1 (window 6): the whole batch equal to the RREF
+    of the original matrices by echelonize_batched (the RREF is unique),
+    ranks too; 32 elements equal to the single top_echelonize on the card;
+    4 to the host's Gauss-Jordan elimination.  Then 16 matrices off the
+    contract (a zeroed top band pushes the first pivots below the window),
+    each equal to the single call.  No call reads anything back."""
+    B, m, n = MCELIECE
+    data = stack_on_card(seed + 900, B, m, n)
+    rref, rank = m4.echelonize_batched(data, n)
+    ref = m4.echelonize_batched(data, n, full=False)[0]
+    oracle = [host_rref(host_words(data[i]), n) for i in range(SAMPLE // 2)]
+    del data
+    report, total = {}, {}
+    for k in (0, 1):
+        E, r = batched_entry(
+            f"top_echelonize_k{k}",
+            lambda: m4.top_echelonize_batched(ref, n, k=k),
+            lambda i: m4.top_echelonize(BitMatrix(ref[i], n), k=k), B, report,
+            total, loop=LOOP_SLICE)
+        check(torch.equal(E, rref) and torch.equal(r, rank),
+              f"top_echelonize k={k}: the batch differs from its RREF")
+        for i, (want, rk) in enumerate(oracle):
+            check(int(r[i]) == rk and np.array_equal(host_words(E[i]), want),
+                  f"top_echelonize k={k}: element {i} differs from the "
+                  "host's RREF")
+        del E, r
+    off_b = 16
+    off = stack_on_card(seed + 930, off_b, m, n)
+    off[:, :200, :8] = 0          # rows 0-199 zero in columns 0-255
+    E, r = batched_entry(
+        "top_echelonize_off_contract",
+        lambda: m4.top_echelonize_batched(off, n),
+        lambda i: m4.top_echelonize(BitMatrix(off[i], n)), off_b, report,
+        total)
+    no_read_back("batched_top_echelonize_mceliece", report)
+    emit("batched_top_echelonize_mceliece", ok=True, batch=B, shape=[m, n],
+         search_window={"k0": TOP_WINDOW, "k1": 6},
+         ranks=sorted(set(rank.tolist())),
+         off_contract={"batch": off_b, "ranks": sorted(set(r.tolist()))},
+         runs=report)
+    return total
+
+
+def phase_batched_naive_isd(seed: int) -> dict:
+    """The naive Gauss engines over a batch: invert_naive_batched of the
+    1024 ISD matrices held to invert_batched (ok where r_a = n, the same
+    inverses there); echelonize_naive_batched of the McEliece stack held to
+    echelonize_batched; gauss_delayed_batched from column 2720 = k of it
+    (the last n - k = 768 columns), 16 elements equal to the single
+    gauss_delayed on the card and 4 ranks to the host's elimination of
+    those columns.  No call reads anything back."""
+    B, n = ISD
+    A, _ = isd_stack(seed)
+    report, total = {}, {}
+    Ai, ok = batched_entry("invert_naive", lambda: m4.invert_naive_batched(A),
+                           None, B, report, total, kernels=(), loop=0)
+    Aj, r_a = m4.invert_batched(A)
+    keep = ok[:, None, None].to(torch.int32)
+    check(torch.equal(ok, r_a == n) and torch.equal(Ai * keep, Aj * keep),
+          "invert_naive differs from invert_batched")
+    invertible = int(ok.sum())
+    del A, Ai, Aj
+    Bm, m, nn = MCELIECE
+    data = stack_on_card(seed + 900, Bm, m, nn)
+    E, r = batched_entry(
+        "echelonize_naive", lambda: m4.echelonize_naive_batched(data, nn),
+        None, Bm, report, total, kernels=(), loop=0)
+    E2, r2 = m4.echelonize_batched(data, nn)
+    check(torch.equal(E, E2) and torch.equal(r, r2),
+          "echelonize_naive differs from echelonize_batched")
+    del E, E2
+    k = nn - m
+    G, rg = batched_entry(
+        "gauss_delayed", lambda: m4.gauss_delayed_batched(data, nn,
+                                                          start_col=k),
+        lambda i: m4.gauss_delayed(BitMatrix(data[i], nn), start_col=k), Bm,
+        report, total, kernels=(), loop=16)
+    for i in range(SAMPLE // 2):
+        _, rk = host_rref(host_words(data[i])[:, k // 32:], m)
+        check(int(rg[i]) == rk, f"gauss_delayed: element {i}'s rank "
+              f"{int(rg[i])}, the host's {rk}")
+    no_read_back("batched_naive_isd", report)
+    emit("batched_naive_isd", ok=True, invert_batch=B, n=n,
+         invertible=invertible, echelon_batch=Bm, shape=[m, nn],
+         start_col=k, runs=report)
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=17)
@@ -2991,7 +3151,9 @@ def main() -> int:
                       phase_batched_miss_4096, phase_batched_mul_512,
                       phase_batched_one, phase_batched_ple_pluq_mceliece,
                       phase_batched_rref_mceliece, phase_batched_solve_isd,
-                      phase_batched_invert_trsm):
+                      phase_batched_invert_trsm,
+                      phase_batched_top_echelonize_mceliece,
+                      phase_batched_naive_isd):
             t = time.time()
             add_counts(launches, phase(seed))
             batch_s[phase.__name__.removeprefix("phase_")] = time.time() - t
@@ -3010,7 +3172,8 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # what bounds the pivot loop is its chain of steps; bytes go beside it
-    more = ("chain_floor_ms", "bytes_bound_ms", "dist_launches", "library_note")
+    more = ("chain_floor_ms", "bytes_bound_ms", "dist_launches", "library_note",
+            f"search_window_{TOP_WINDOW}", "miss_check_off")
     print(json.dumps({"kernels": [
         {**{k: r[k] for k in keys}, **{k: r[k] for k in more if k in r}}
         for r in report.values()]}))

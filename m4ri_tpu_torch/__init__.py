@@ -24,9 +24,10 @@ PLE / rank / echelon, distributed TRSM / solve / invert / kernel on
 ``torch.distributed``, with its dry runs in ``dryrun.py``) and batching
 (``mul_packed_batched`` / ``block_factor_batched`` / ``rank_batched``,
 ``ple_batched`` / ``pluq_batched`` and the batched solver API of
-``models/batched_solve.py``: TRSM / TRTRI, echelon forms, ``invert``,
-``solve_left`` / ``pluq_solve_left`` / ``kernel_left``; what the JAX package
-gets from ``jax.vmap``).  Like the JAX package, the top
+``models/batched_solve.py``: TRSM / TRTRI, echelon forms,
+``top_echelonize``, ``invert``, the naive engines, ``solve_left`` /
+``pluq_solve_left`` / ``kernel_left``; what the JAX package gets from
+``jax.vmap``).  Like the JAX package, the top
 level does not export ``parallel``.
 """
 
@@ -52,11 +53,12 @@ from .models.batched import (  # noqa: F401
     rank_batched,
 )
 from .models.batched_solve import (  # noqa: F401
-    echelonize_batched, echelonize_with_pivots_batched, invert_batched,
-    kernel_left_batched, pluq_solve_left_batched, solve_left_batched,
-    trsm_lower_left_batched, trsm_lower_right_batched,
-    trsm_upper_left_batched, trsm_upper_right_batched, trtri_lower_batched,
-    trtri_upper_batched,
+    echelonize_batched, echelonize_naive_batched,
+    echelonize_with_pivots_batched, gauss_delayed_batched, invert_batched,
+    invert_naive_batched, kernel_left_batched, pluq_solve_left_batched,
+    solve_left_batched, top_echelonize_batched, trsm_lower_left_batched,
+    trsm_lower_right_batched, trsm_upper_left_batched,
+    trsm_upper_right_batched, trtri_lower_batched, trtri_upper_batched,
 )
 from .models.djb import djb_apply, djb_compile  # noqa: F401
 from .models.ple import block_factor  # noqa: F401

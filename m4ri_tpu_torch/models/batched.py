@@ -29,7 +29,10 @@ Python ints.  So the batched sweep here is ``_block_factor_impl``
 - one read-back a panel for the whole batch: how many elements' windows
   missed.  On a panel where some did, one more read-back gives their indices
   and ranks, and each of them is redone at full height by the single-matrix
-  pivot loop (modes grid / tall).
+  pivot loop (modes grid / tall);
+- with a ``search_window`` (the restricted pivot search of
+  ``top_echelonize``) a pivot is never looked for below the window, so no
+  window can miss: the miss check is off and the sweep reads nothing back.
 
 Element ``i`` of every result equals, word for word, the single-matrix call
 on element ``i``.  ``block_factor_batched.host_syncs`` and ``.miss_fallbacks``
@@ -101,7 +104,8 @@ def _put_rows(x: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor) -> None:
 
 
 def _block_factor_batched_impl(data: torch.Tensor, m: int, n: int, nb: int,
-                               preserve_l: bool, window: int, engine: str):
+                               preserve_l: bool, search_window: int,
+                               window: int, engine: str):
     if engine not in ENGINES:
         raise ValueError(f"engine={engine!r}, want one of {ENGINES}")
     hopper = engine == "hopper"
@@ -109,6 +113,7 @@ def _block_factor_batched_impl(data: torch.Tensor, m: int, n: int, nb: int,
     B = data.shape[0]
     nbw = nb // WORD_BITS
     W = window
+    assert W >= nb + search_window, (W, nb, search_window)
     # the padding as the single-matrix sweep has it: every gathered window
     # and U-row block lies inside, and the extra rows never pivot (pos < m)
     m_pad = _round_up(_round_up(m, nb) + W, 256)
@@ -138,18 +143,24 @@ def _block_factor_batched_impl(data: torch.Tensor, m: int, n: int, nb: int,
         # ---- fast path: the pivot loop on every element's window ----
         al0 = torch.cat([_rows(Xw, win), Xw.new_zeros((B, W, nbw))], dim=2)
         ALw, rpw, r_f, _, p_f, q_f = loop(al0, r_in, r_in, m, nb, preserve_l,
-                                          0)
+                                          search_window)
 
         # ---- batched elimination of the rows below each window ----
         live = slotv[None, :] < (r_f - r_in)[:, None]  # [B, nb]
+        # search_window: the restricted search never pivots below the window
+        # (r + search_window <= r_in + W), so a bare below-window 1 is
+        # legitimate: no miss check, and nothing to read back
         m_small, wmat, cmb = post_operands(ALw[:, :nb], live, q_f, t * nb, n,
-                                           preserve_l, consts)
+                                           preserve_l, consts,
+                                           not search_window)
         vw_full, lamw_full, miss = post(Xw, m_small, wmat, cmb, r_in + W, m)
 
-        # the one read-back of the panel for the whole batch
-        n_missed = int(miss.sum())
-        block_factor_batched.host_syncs += 1
         fallbacks = []
+        n_missed = 0
+        if not search_window:
+            # the one read-back of the panel for the whole batch
+            n_missed = int(miss.sum())
+            block_factor_batched.host_syncs += 1
         if n_missed:
             # their indices (a stable sort puts the n_missed flagged ones
             # first, with no read-back of its own) and ranks: one more
@@ -206,23 +217,24 @@ def _block_factor_batched_impl(data: torch.Tensor, m: int, n: int, nb: int,
 
 
 def block_factor_batched(data: torch.Tensor, ncols: int, preserve_l: bool,
-                         nb: int | None = None, window: int | None = None,
-                         engine: str | None = None):
+                         nb: int | None = None, search_window: int = 0,
+                         window: int | None = None, engine: str | None = None):
     """``block_factor`` of every element of a batch.  ``data``: int32
     ``[B, m, width_for(ncols)]``, element i a packed m x ncols matrix with
     zero padding bits.  Returns ``(data [B, m, w], P int32 [B, m], Q int32
     [B, ncols], r int32 [B])``, the rank on the device.  Element i equals,
     word for word, ``block_factor(BitMatrix(data[i], ncols), preserve_l, nb,
-    window=window)``: ``nb`` and ``window`` default as there, and ``engine``
-    is "hopper" for a batch on the card (each kernel launches or raises)
-    and "plain" on the CPU."""
+    search_window, window)``: ``nb`` and ``window`` default as there, and
+    ``engine`` is "hopper" for a batch on the card (each kernel launches or
+    raises) and "plain" on the CPU.  With a ``search_window`` the call reads
+    nothing back from the device."""
     _check_stack("data", data)
     B, m, w = data.shape
     if w != width_for(ncols):
         raise ValueError(f"data has {w} words a row, {ncols} columns want "
                          f"{width_for(ncols)}")
     cfg = get_config()
-    nb, window = panel_widths(m, ncols, nb, window)
+    nb, window = panel_widths(m, ncols, nb, window, search_window)
     if engine is None:
         engine = "hopper" if (cfg.use_hopper_panel and data.is_cuda) \
             else "plain"
@@ -232,12 +244,13 @@ def block_factor_batched(data: torch.Tensor, ncols: int, preserve_l: bool,
         return (data.clone(), ar(m, dtype=torch.int32, device=dev).repeat(B, 1),
                 ar(ncols, dtype=torch.int32, device=dev).repeat(B, 1),
                 torch.zeros(B, dtype=torch.int32, device=dev))
-    return _block_factor_batched_impl(data, m, ncols, nb, preserve_l, window,
-                                      engine)
+    return _block_factor_batched_impl(data, m, ncols, nb, preserve_l,
+                                      search_window, window, engine)
 
 
 # counted where they happen: read-backs from the device (one a panel, one
-# more on a panel where some element missed) and panels redone at full height
+# more on a panel where some element missed; none under a search window)
+# and panels redone at full height
 block_factor_batched.host_syncs = 0
 block_factor_batched.miss_fallbacks = 0
 

@@ -17,7 +17,10 @@ beyond ``block_factor_batched``'s one read-back a panel:
 - the TRSM / TRTRI recursion is the single one (models/triangular.py) on
   stacks, on the same static splits: each block product is one
   ``mul_packed_batched`` call (on the card the batched Schur kernel), and
-  each base block is inverted by the nilpotent series over ``[B, n, n]``.
+  each base block is inverted by the nilpotent series over ``[B, n, n]``;
+- ``top_echelonize_batched`` runs the sweep with a search window, and the
+  naive engines run models/echelon.py's column step with its batch axis:
+  neither reads anything back.
 
 Element ``i`` of every result equals, word for word, the port's
 single-matrix call on element ``i``.
@@ -34,8 +37,10 @@ from ..core.permutation import apply_p_left_batched
 from ..core.transpose import transpose_words
 from ..ops.mul import pack_bits
 from ..utils.config import WORD_BITS
+from ..utils.graycode import opt_k
 from .batched import _check_stack, _rows, block_factor_batched, \
     mul_packed_batched
+from .echelon import naive_sweep
 from .solve import _pad_words
 from .triangular import (_clean_tri, _trsm_left_rec, _trsm_right_rec,
                          _trtri)
@@ -46,6 +51,8 @@ __all__ = [
     "trsm_lower_right_batched", "echelonize_batched",
     "echelonize_with_pivots_batched", "invert_batched", "solve_left_batched",
     "pluq_solve_left_batched", "kernel_left_batched",
+    "top_echelonize_batched", "echelonize_naive_batched",
+    "gauss_delayed_batched", "invert_naive_batched",
 ]
 
 
@@ -211,6 +218,21 @@ def echelonize_batched(data: torch.Tensor, ncols: int, full: bool = True,
     return d & padding_words(ncols, d.device), r
 
 
+def top_echelonize_batched(data: torch.Tensor, ncols: int, k: int = 0,
+                           nb: int | None = None):
+    """RREF of every element by the restricted pivot search:
+    ``(E [B, m, w], r int32 [B])``, element i ``top_echelonize(BitMatrix(
+    data[i], ncols), k, nb)``.  ``k`` defaults as there; the sweep searches
+    the next 6k rows below each element's rank and reads nothing back."""
+    _check_width("data", data, ncols)
+    if k <= 0:
+        k = min(opt_k(data.shape[1], ncols), 7)
+    d, _, q, r = block_factor_batched(data, ncols, False, nb=nb,
+                                      search_window=6 * k)
+    e = _rref_from_ref(d, q, r, data.shape[1], ncols)
+    return e & padding_words(ncols, e.device), r
+
+
 def echelonize_with_pivots_batched(data: torch.Tensor, ncols: int,
                                    nb: int | None = None):
     """RREF, Q and rank of every element (``echelonize_with_pivots``)."""
@@ -245,6 +267,41 @@ def invert_batched(data: torch.Tensor, nb: int | None = None):
     k = torch.arange(n, device=dev)
     r_a = ((k < r[:, None]) & (q[:, :n] < n)).sum(dim=1, dtype=torch.int32)
     return _shift_left(rref, n, n), r_a
+
+
+def echelonize_naive_batched(data: torch.Tensor, ncols: int,
+                             full: bool = True, start_col: int = 0):
+    """The naive Gauss engine on every element: ``(E [B, m, w], r int32
+    [B])``, element i ``echelonize_naive(BitMatrix(data[i], ncols), full,
+    start_col)``; nothing is read back."""
+    _check_width("data", data, ncols)
+    d, r = naive_sweep(data, data.shape[1], ncols, full, start_col)
+    return d & padding_words(ncols, d.device), r
+
+
+def gauss_delayed_batched(data: torch.Tensor, ncols: int, start_col: int = 0,
+                          full: bool = False):
+    """Gauss elimination from a column on every element
+    (``gauss_delayed``)."""
+    return echelonize_naive_batched(data, ncols, full=full,
+                                    start_col=start_col)
+
+
+def invert_naive_batched(data: torch.Tensor):
+    """A^{-1} of every element of ``[B, n, w(n)]`` through the naive engine
+    on [A | I]: ``(inverse [B, n, w(n)], ok bool [B])``, element i
+    ``invert_naive`` of element i; ``ok[b]`` is true iff the left block
+    reduced to the identity."""
+    n = _tri_operand(data)
+    B, dev = data.shape[0], data.device
+    w2 = width_for(2 * n)
+    eye = identity(n, device=dev).data
+    aug = shift_columns_right(eye, n, w2).expand(B, n, w2).clone()
+    aug[:, :, : data.shape[2]] ^= data
+    red, _ = echelonize_naive_batched(aug, 2 * n, full=True)
+    left = red[:, :, : data.shape[2]] & padding_words(n, dev)
+    ok = (left == eye).flatten(1).all(dim=1)
+    return _shift_left(red, n, n), ok
 
 
 # ------------------------------------------------------ solve and kernel

@@ -197,34 +197,48 @@ def _invert_post(data: torch.Tensor, q: torch.Tensor, r: int, n: int):
     return submatrix(rref, 0, n, n, 2 * n), r_a
 
 
+def naive_sweep(data: torch.Tensor, m: int, n: int, full: bool,
+                start_col: int = 0):
+    """The naive engine's column steps over a leading batch axis: ``data``
+    int32 [B, m, w(n)] -> (data, r int32 [B]), both on the device.  One
+    step a column from ``start_col``: each element takes its first row at or
+    below its rank with a 1 there, swaps it up to the rank's row and clears
+    the column in the rows below (every other row with ``full``).  The swap
+    is a gather, so no write depends on an element's pivot; nothing is read
+    back."""
+    dev = data.device
+    B, W = data.shape[0], data.shape[2]
+    ridx = torch.arange(m, device=dev)[None, :]
+    r = torch.zeros(B, dtype=torch.int32, device=dev)
+    for c in range(start_col, n):
+        w, s = divmod(c, WORD_BITS)
+        col = (data[:, :, w] >> s) & 1                      # [B, m]
+        active = (col == 1) & (ridx >= r[:, None])
+        found = active.any(dim=1)
+        rs = r.clamp(max=m - 1).long()[:, None]
+        ps = torch.where(found[:, None],
+                         torch.argmax(active.to(torch.uint8), dim=1,
+                                      keepdim=True), rs)
+        swap = torch.where(ridx == rs, ps, torch.where(ridx == ps, rs, ridx))
+        data = data.gather(1, swap[:, :, None].expand(-1, -1, W))
+        col = col.gather(1, swap)
+        pivrow = data.gather(1, rs[:, :, None].expand(-1, -1, W))
+        below = (ridx != rs) if full else (ridx > rs)
+        elim = (col == 1) & below & found[:, None]
+        data = data ^ (elim.to(torch.int32)[:, :, None] * pivrow)
+        r = r + found.to(torch.int32)
+    return data, r
+
+
 def echelonize_naive(a: BitMatrix, full: bool = True, start_col: int = 0):
     """Straightforward Gauss elimination, one pivot a column step — an
     engine-independent cross-validation path (reference API:
     mzd_echelonize_naive, and with start_col > 0, mzd_gauss_delayed).
-    Returns (matrix, rank).  The rank stays on the device through the
-    column steps and is read back once at the end."""
-    m, n = a.nrows, a.ncols
-    dev = a.device
-    ridx = torch.arange(m, device=dev)
-    data = a.data.clone()
-    r = torch.zeros((), dtype=torch.long, device=dev)
-    for c in range(start_col, n):
-        w, s = divmod(c, WORD_BITS)
-        col = (data[:, w] >> s) & 1
-        active = (col == 1) & (ridx >= r)
-        found = active.any()
-        rs = r.clamp(max=m - 1)
-        ps = torch.where(found, torch.argmax(active.to(torch.uint8)), rs)
-        swap = ridx.clone()
-        swap[rs], swap[ps] = ps, rs
-        data, col = data[swap], col[swap]
-        if full:
-            elim = (col == 1) & (ridx != rs) & found
-        else:
-            elim = (col == 1) & (ridx > rs) & found
-        data = data ^ (elim.to(torch.int32)[:, None] * data[rs][None, :])
-        r = r + found.long()
-    return mask_padding(BitMatrix(data, n)), int(r)
+    Returns (matrix, rank).  ``naive_sweep`` on a batch of one: the rank
+    stays on the device through the column steps and is read back once at
+    the end."""
+    data, r = naive_sweep(a.data[None], a.nrows, a.ncols, full, start_col)
+    return mask_padding(BitMatrix(data[0], a.ncols)), int(r[0])
 
 
 def gauss_delayed(a: BitMatrix, start_col: int = 0, full: bool = False):

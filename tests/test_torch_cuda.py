@@ -680,12 +680,14 @@ def _stack(seed, B, rows, cols, dev):
     return torch.stack([_packed(seed + i, rows, cols, dev) for i in range(B)])
 
 
+@pytest.mark.parametrize("sw", [0, 6, 42])
 @pytest.mark.parametrize("h,nb,B", [(32, 32, 300), (576, 512, 5), (200, 64, 9)])
 @pytest.mark.parametrize("pres", [False, True])
-def test_batched_panel_kernel_equals_plain(card, h, nb, B, pres):
+def test_batched_panel_kernel_equals_plain(card, h, nb, B, pres, sw):
     """Kernel a: one block a window, each with its own base and rank (one
-    window with a zeroed band, one all zero); the outputs of the batched
-    plain version, window by window."""
+    window with a zeroed band, one all zero), with and without a restricted
+    search (``sw`` rows below each window's rank); the outputs of the
+    batched plain version, window by window."""
     x = _stack(130, B, h, nb, card)
     x[1, 3:h // 2] = 0
     x[2] = 0
@@ -693,8 +695,10 @@ def test_batched_panel_kernel_equals_plain(card, h, nb, B, pres):
     base = torch.arange(B, dtype=torch.int32, device=card) * 7
     r0 = base + (torch.arange(B, device=card) % 3).to(torch.int32)
     m = int(base[-1]) + h - 5
-    got = hopper_panel.panel_loop_hopper_batched(al0, r0, base, m, nb, pres)
-    want = hopper_panel.panel_loop_batched_plain(al0, r0, base, m, nb, pres)
+    got = hopper_panel.panel_loop_hopper_batched(al0, r0, base, m, nb, pres,
+                                                 sw)
+    want = hopper_panel.panel_loop_batched_plain(al0, r0, base, m, nb, pres,
+                                                 sw)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert g.shape == w.shape and torch.equal(g, w)
@@ -926,3 +930,60 @@ def test_masks_are_made_on_the_card_without_waiting(card, n):
     host = BitMatrix(raw.view(3, n, -1), n)
     for g, fn in zip(got, fns):
         assert torch.equal(g.cpu(), fn(host))
+
+
+# ---- top_echelonize and the naive engines over a batch ---------------------
+
+def _top_and_naive_calls(a, sq):
+    """{entry: call of a stack [B, 600, w(900)]}; sq is the padding mask of
+    600 columns, [600, w(600)], which cuts a square element out of each."""
+    import m4ri_tpu_torch as mt
+    return {
+        "top_echelonize": lambda x: mt.top_echelonize_batched(x, 900),
+        "top_echelonize_k1": lambda x: mt.top_echelonize_batched(x, 900, k=1),
+        "echelonize_naive": lambda x: mt.echelonize_naive_batched(x, 900),
+        "gauss_delayed": lambda x: mt.gauss_delayed_batched(x, 900,
+                                                            start_col=300),
+        "invert_naive": lambda x: mt.invert_naive_batched(
+            x[:, :, : sq.shape[1]] & sq.to(x.device)),
+    }
+
+
+@pytest.mark.parametrize("entry", ["top_echelonize", "top_echelonize_k1",
+                                   "echelonize_naive", "gauss_delayed",
+                                   "invert_naive"])
+def test_batched_top_and_naive_equal_the_cpu_port(card, entry):
+    """top_echelonize_batched on REF inputs and the naive engines over a
+    batch equal the CPU port word for word and wait for nothing on the card;
+    the restricted search launches the three batched kernels."""
+    import warnings
+
+    import m4ri_tpu_torch as mt
+    from m4ri_tpu_torch.models import batched
+    B, m, n = 4, 600, 900
+    a = _stack(195, B, m, n, card)
+    a[1] = 0
+    a[2, 100:] = a[2, :m - 100].clone()
+    if entry.startswith("top"):
+        a = mt.echelonize_batched(a, n, full=False)[0]
+    sq = torch.full((m, (m + 31) // 32), -1, dtype=torch.int32, device=card)
+    sq[:, -1] = (1 << (m % 32)) - 1                      # the padding mask
+    call = _top_and_naive_calls(a, sq)[entry]
+    call(a)                                             # kernels built
+    torch.cuda.synchronize()
+    fn = batched.block_factor_batched
+    s0 = fn.host_syncs
+    launched = hopper_panel.panel_loop_hopper_batched.launches
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            got = call(a)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert _sync_waits(caught) == 0 and fn.host_syncs == s0
+    if entry.startswith("top"):
+        assert hopper_panel.panel_loop_hopper_batched.launches > launched
+    want = call(a.cpu())
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda" and torch.equal(g.cpu(), w)

@@ -36,7 +36,10 @@ word the single-device entry point's; then the batched path
 single-matrix ``block_factor``, and ``mul_packed_batched`` of 1024 products
 512^2 x 512^2 against ``mul_packed_data`` and Freivalds' check; its three
 batched kernels are held to their batched plain versions on the McEliece
-batch's first panel; then the batched solver API at the widths of Classic
+batch's first panel, the trailing update also with r0 spread over the row
+tiles, the below-window elimination also with rows in range for some
+elements only and for none (the sweep's second panel, 2^16 NIST panels);
+then the batched solver API at the widths of Classic
 McEliece mceliece348864: ``ple_batched`` / ``pluq_batched``, both RREF
 strategies and ``kernel_left_batched`` of the 256 McEliece matrices,
 ``solve_left_batched`` and ``pluq_solve_left_batched`` of 1024 768^2 systems
@@ -85,6 +88,7 @@ from m4ri_tpu_torch.benches.peaks import (PEAK_ALU32_OPS_PER_S,
                                           PEAK_B1_OPS_PER_S, PEAK_BYTES_PER_S,
                                           schur_bound)
 from m4ri_tpu_torch.benches.probe_mma import probe as probe_mma
+from m4ri_tpu_torch.benches.split_batched import capture_panel
 from m4ri_tpu_torch.core import permutation as perm_mod
 from m4ri_tpu_torch.core.bitmatrix import BitMatrix, mask_padding
 from m4ri_tpu_torch.models import batched as batched_mod
@@ -2275,38 +2279,6 @@ def same_as_single(got, data, ncols: int, pres: bool, what: str) -> None:
         check(int(got[3][i]) == want[3], f"{what}: element {i}'s rank")
 
 
-def capture_first_panel(data, ncols: int, pres: bool, **kw) -> dict:
-    """The operands the batched sweep gives kernels a, b and c on its first
-    panel, cloned as they are handed over (not counted: a run apart from
-    the main path's); ``kw`` goes to block_factor_batched."""
-    seen = {}
-    names = {"panel_loop_hopper_batched": 1, "panel_post_hopper_batched": 1,
-             "gf2_schur_update_batched_hopper": 2}   # the U rows, the update
-    real = {name: getattr(batched_mod, name) for name in names}
-
-    def recorder(name):
-        def rec(*args):
-            calls = seen.setdefault(name, [])
-            if len(calls) < names[name]:
-                calls.append([a.clone() if isinstance(a, torch.Tensor) else a
-                              for a in args])
-            return real[name](*args)
-        return rec
-
-    for name in names:
-        setattr(batched_mod, name, recorder(name))
-    try:
-        batched_mod.block_factor_batched(data, ncols, pres, **kw)
-        torch.cuda.synchronize()
-    finally:
-        for name, fn in real.items():
-            setattr(batched_mod, name, fn)
-    check(all(len(seen.get(n, ())) == k for n, k in names.items()),
-          f"the first panel did not reach every batched kernel: "
-          f"{ {n: len(v) for n, v in seen.items()} }")
-    return {n: v[-1] for n, v in seen.items()}
-
-
 def roofline(nbytes: float, b1_ops: float = 0.0, alu_ops: float = 0.0) -> dict:
     """The larger of bytes over the memory rate and operations over their
     peak: 1-bit tensor-core operations, or 32-bit operations outside the
@@ -2337,19 +2309,34 @@ def batched_schur_bound(m: int, k: int, nw: int, r0s, c0w: int) -> dict:
 TOP_WINDOW = 6 * min(opt_k(768, 3488), 7)
 # the record of a kernel's second operand set, nested in its kernels entry
 SUB_KEYS = ("max_abs_err", "matches_plain", "ms", "plain_ms", "bound_ms",
-            "bound_by", "ms_min", "ms_max", "runs", "timed_at", "eliminations")
+            "bound_by", "ms_min", "ms_max", "runs", "timed_at", "eliminations",
+            "elements_in_range")
+# the nested records of kernels_batched: 5b and 6b on top_echelonize's first
+# panel; 6b with rows in range for some elements only, with none (the
+# McEliece batch's second panel, 2^16 NIST panels); 4b with r0 spread over
+# the row tiles and c0w off the 8-word tiles
+NIST_POST = 1 << 16
+SPREAD_C0W = 21
+SUBS = (f"search_window_{TOP_WINDOW}", "miss_check_off", "rows_in_range_mixed",
+        "nothing_in_range", f"nist_{NIST_POST}_nothing_in_range",
+        f"r0_spread_c0w_{SPREAD_C0W}")
 
 
 def phase_batched_kernels(seed: int) -> dict:
     """Kernels a, b and c against their batched plain versions on the card,
     on the operands the McEliece batch's first panel gives them (the whole
-    batch), and their times there beside their bounds; then a and b again
-    on the first panel of top_echelonize_batched's sweep of that batch
-    brought to REF: a with the search window of 42 rows, b with the miss
-    check off (a zero column mask: the miss byte must stay 0)."""
+    batch), and their times there beside their bounds; c again with each
+    element's r0 spread over its row tiles (some at or past m) and c0w off
+    the 8-word tiles; b again with rows in range for two thirds of the
+    elements only (below0 off the 128-row tiles), and with none: the
+    sweep's second panel, and the one panel of 2^16 NIST 32 x 32 matrices
+    (v must equal X, lam and every miss byte 0); then a and b on the first
+    panel of top_echelonize_batched's sweep of that batch brought to REF: a
+    with the search window of 42 rows, b with the miss check off (a zero
+    column mask: the miss byte must stay 0)."""
     B, m, n = MCELIECE
     data = stack_on_card(seed + 900, B, m, n)
-    ops = capture_first_panel(data, n, False)
+    ops = capture_panel(data, n, False)
     report, bad = {}, {}
 
     def entry(name, fn, plain, timed, timed_plain, bnd, sub=None, **more):
@@ -2392,42 +2379,85 @@ def phase_batched_kernels(seed: int) -> dict:
               search_window=sw)
 
     def post_entry(ops_b, sub=None):
-        """b: the elimination below each window, 1792 rows."""
+        """b: the elimination below each window (1792 rows a McEliece
+        panel).  The bound counts X read and v, lam written for every
+        element, M, W and the column mask read for the elements with a row
+        in range only: the others pass through, their operands unread."""
         xw, msm, wm, cmb, below0, mvalid = ops_b
-        nbw = xw.shape[2]
-        rows = int((mvalid - below0).clamp(min=0).sum())
-        pb = (lambda: hopper_post.panel_post_hopper_batched(
-            xw, msm, wm, cmb, below0, mvalid))
-        pp = (lambda: hopper_post.panel_post_batched_plain(
-            xw, msm, wm, cmb, below0, mvalid))
-        return entry("panel_post_hopper_batched", pb, pp, pb, pp,
-                     roofline(B * (4 * 3 * xw.shape[1] * nbw
-                                   + 2 * (32 * nbw) ** 2 + 32 * nbw + 1),
-                              b1_ops=2 * 2 * rows * (32 * nbw) ** 2),
-                     sub=sub, timed_at=list(xw.shape))
+        nb = 32 * xw.shape[2]
+        span = (min(mvalid, xw.shape[1]) - below0.clamp(min=0)).clamp(min=0)
+        live = int((span > 0).sum())
+        return entry("panel_post_hopper_batched",
+                     lambda: hopper_post.panel_post_hopper_batched(*ops_b),
+                     lambda: hopper_post.panel_post_batched_plain(*ops_b),
+                     lambda: hopper_post.panel_post_hopper_batched(*ops_b),
+                     lambda: hopper_post.panel_post_batched_plain(*ops_b),
+                     roofline(xw.shape[0] * (4 * 3 * xw.shape[1] * nb // 32 + 1)
+                              + live * (2 * nb * nb + nb),
+                              b1_ops=2 * 2 * int(span.sum()) * nb * nb),
+                     sub=sub, timed_at=list(xw.shape), elements_in_range=live)
+
+    def schur_entry(c, lp, up, r0s, c0w, sub=None):
+        """c: the trailing update, timed in place on one C (the work does
+        not depend on the words)."""
+        cc = c.clone()
+        entry("gf2_schur_update_batched_hopper",
+              lambda: hopper_schur.gf2_schur_update_batched_hopper(
+                  c.clone(), lp, up, r0s, c0w),
+              lambda: hopper_schur.gf2_schur_update_plain(c.clone(), lp, up),
+              lambda: hopper_schur.gf2_schur_update_batched_hopper(
+                  cc, lp, up, r0s, c0w),
+              lambda: hopper_schur.gf2_schur_update_plain(cc, lp, up),
+              batched_schur_bound(c.shape[1], up.shape[1], c.shape[2],
+                                  r0s.tolist(), c0w),
+              sub=sub, timed_at=list(c.shape) + [up.shape[1]], c0w=c0w)
 
     loop_entry(ops["panel_loop_hopper_batched"])
     post_entry(ops["panel_post_hopper_batched"])
     # c: the trailing update, C 768 x 112 words (the real rows: the sweep
-    # hands the kernel no padding row), k = 512, c0w = 16; timed in place on
-    # one C (the work does not depend on the words)
+    # hands the kernel no padding row), k = 512, c0w = 16
     c, lp, up, r0s, c0w = ops["gf2_schur_update_batched_hopper"]
-    cc = c.clone()
-    entry("gf2_schur_update_batched_hopper",
-          lambda: hopper_schur.gf2_schur_update_batched_hopper(
-              c.clone(), lp, up, r0s, c0w),
-          lambda: hopper_schur.gf2_schur_update_plain(c.clone(), lp, up),
-          lambda: hopper_schur.gf2_schur_update_batched_hopper(
-              cc, lp, up, r0s, c0w),
-          lambda: hopper_schur.gf2_schur_update_plain(cc, lp, up),
-          batched_schur_bound(c.shape[1], up.shape[1], c.shape[2],
-                              r0s.tolist(), c0w),
-          timed_at=list(c.shape) + [up.shape[1]], c0w=c0w)
-    del ops, c, cc, lp, up
+    schur_entry(c, lp, up, r0s, c0w)
+    # c again, each element's r0 on, inside, at the end of or past its row
+    # tiles, c0w off the 8-word tiles; Lp and Up cut to the contract
+    spread = torch.tensor([0, 1, 255, 256, 257, 511, 512, 700, 767, 768, 800,
+                           5000], dtype=torch.int32, device=DEV).repeat(
+                               -(-B // 12))[:B]
+    rows = torch.arange(m, device=DEV)
+    lp_s = lp * (rows[None, :] >= spread[:, None]).to(torch.int32)[:, :, None]
+    up_s = up.clone()
+    up_s[:, :, :SPREAD_C0W] = 0
+    schur_entry(c, lp_s, up_s, spread, SPREAD_C0W,
+                f"r0_spread_c0w_{SPREAD_C0W}")
+    # b with rows in range for some elements only: below0 off the 128-row
+    # tiles for two thirds, at or past mvalid for the rest
+    xw, msm, wm, cmb, below0, mvalid = ops["panel_post_hopper_batched"]
+    idx = torch.arange(B, dtype=torch.int32, device=DEV)
+    mixed = torch.where(idx % 3 == 0, mvalid + idx % 5, 513 + idx * 37 % 250)
+    got = post_entry((xw, msm, wm, cmb, mixed, mvalid), "rows_in_range_mixed")
+    out = mixed >= mvalid
+    check(not bool(got[1][out].any()) and torch.equal(got[0][out], xw[out]),
+          "6b changed an element with no row in range")
+    del ops, c, lp, up, lp_s, up_s, xw, msm, wm, cmb
+
+    # b with nothing in range: the McEliece sweep's second panel, and the
+    # one panel of 2^16 NIST 32 x 32 matrices; v = X, lam and miss 0
+    second = capture_panel(data, n, False, panel=1)["panel_post_hopper_batched"]
+    nist = stack_on_card(seed + 901, NIST_POST, 32, 32)
+    first_nist = capture_panel(nist, 32, False, need=(
+        "panel_post_hopper_batched",))["panel_post_hopper_batched"]
+    for ops_b, sub in ((second, "nothing_in_range"),
+                       (first_nist, f"nist_{NIST_POST}_nothing_in_range")):
+        check(bool((ops_b[4] >= ops_b[5]).all()),
+              f"6b ({sub}): some element has a row in range")
+        got = post_entry(ops_b, sub)
+        check(torch.equal(got[0], ops_b[0]) and not bool(got[1].any())
+              and not bool(got[2].any()), f"6b ({sub}) did not pass X through")
+    del second, nist, first_nist
 
     # a and b on the restricted search: top_echelonize_batched's first panel
     ref = m4.echelonize_batched(data, n, full=False)[0]
-    top = capture_first_panel(ref, n, False, search_window=TOP_WINDOW)
+    top = capture_panel(ref, n, False, search_window=TOP_WINDOW)
     check(top["panel_loop_hopper_batched"][-1] == TOP_WINDOW,
           "the sweep did not hand the pivot loop its search window")
     check(not bool(top["panel_post_hopper_batched"][3].any()),
@@ -3173,7 +3203,7 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # what bounds the pivot loop is its chain of steps; bytes go beside it
     more = ("chain_floor_ms", "bytes_bound_ms", "dist_launches", "library_note",
-            f"search_window_{TOP_WINDOW}", "miss_check_off")
+            *SUBS)
     print(json.dumps({"kernels": [
         {**{k: r[k] for k in keys}, **{k: r[k] for k in more if k in r}}
         for r in report.values()]}))

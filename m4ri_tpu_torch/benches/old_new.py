@@ -1,7 +1,8 @@
 """The GF(2) GEMMs, the Schur update and the factorization of two trees,
 timed in turns on one card.
 
-    python -m m4ri_tpu_torch.benches.old_new --parent DIR [--quick | --solver]
+    python -m m4ri_tpu_torch.benches.old_new --parent DIR [--quick | --solver |
+                                                           --batched]
 
 DIR holds a checkout of another commit of this repository (unpack one with
 ``git archive <commit> | tar -x -C DIR``); its ``m4ri_tpu_torch`` is loaded
@@ -22,6 +23,16 @@ sizes of ``chip_smoke.py`` (``ple`` 16384², the four TRSMs 32768², RREF and
 ``kernel_left`` 4096²) and at the McEliece sizes of its batched phases
 (``ple`` 768 x 3488, ``solve_left`` 768² x 1, ``invert`` 768², a 768² TRSM
 with a 768 x 64 B), each on the host clock ended by a synchronize.
+``--batched`` times the batched launches instead: the trailing update
+(4b) and the below-window elimination (6b) on the operands the batched
+sweep gives them on the first panel of 256 McEliece matrices (and 6b on its
+second panel, where no row is in range), then the single Schur entry points
+at the four panels above and the single elimination at 17152 / 34048 rows,
+whose kernels share the batched launches' code, each as ``pairs`` pairs of
+CUDA-event medians (the order flipped from pair to pair); then
+``rank_batched`` of 2^20 32 x 32 matrices, ``ple_batched`` of the 256
+McEliece matrices and ``invert_batched`` of 1024 768² ones, on the host
+clock ended by a synchronize, in pairs as well.
 One JSON object a line.  Needs the card and ``nvcc``.
 """
 
@@ -104,6 +115,19 @@ def in_turns(old_fn, new_fn, timer, **kw) -> dict:
     return {"parent_ms": summary(o1 + o2), "this_ms": summary(n1 + n2)}
 
 
+def in_pairs(old_fn, new_fn, timer, pairs: int = 10, **kw) -> dict:
+    """``pairs`` pairs of runs, parent first in even pairs and this tree
+    first in odd ones; each run the median of ``timer``'s times; the
+    summary is over the runs' medians."""
+    old, new = [], []
+    for i in range(pairs):
+        order = ((old_fn, old), (new_fn, new))
+        for fn, out in (order if i % 2 == 0 else order[::-1]):
+            out.append(statistics.median(timer(fn, **kw)))
+    return {"parent_ms": summary(old), "this_ms": summary(new),
+            "pairs": pairs}
+
+
 def packed(rng, rows: int, cols: int) -> torch.Tensor:
     x = rng.integers(0, 2**32, (rows, cols // 32), dtype=np.uint64)
     return torch.from_numpy(x.astype(np.uint32).view(np.int32)).cuda()
@@ -181,6 +205,110 @@ def solver_in_turns(old_pkg, rng) -> None:
         del args_n, args_o
 
 
+def same_all(a, b) -> bool:
+    a = a if isinstance(a, tuple) else (a,)
+    b = b if isinstance(b, tuple) else (b,)
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def schur_in_turns(old_pkg, rng, timer=in_turns) -> None:
+    """Both single Schur entry points of both trees at the first and the
+    middle panel of the sweeps at n=16384 (nb=512) and n=32768 (nb=1024)."""
+    plain = sub(new_pkg, "ops.hopper_schur").gf2_schur_update_plain
+    for (m, nw, k, panels) in [(17152, 512, 512, [(0, 16), (8192, 272)]),
+                               (34048, 1024, 1024, [(0, 32), (16384, 544)])]:
+        c0 = packed(rng, m, nw * 32)
+        lp0, up0 = packed(rng, m, k), packed(rng, k, nw * 32)
+        for (r0, c0w) in panels:
+            lp, up = lp0.clone(), up0.clone()
+            lp[:r0] = 0
+            up[:, :c0w] = 0
+            want = plain(c0.clone(), lp, up)
+            c_old, c_new = c0.clone(), c0.clone()
+            old, new = (schur_calls(old_pkg, c_old, lp, up, r0, c0w),
+                        schur_calls(new_pkg, c_new, lp, up, r0, c0w))
+            for name in old:
+                c_old.copy_(c0)
+                c_new.copy_(c0)
+                old[name]()
+                new[name]()
+                torch.cuda.synchronize()
+                same = torch.equal(c_old, want) and torch.equal(c_new, want)
+                t = timer(old[name], new[name], event_ms)
+                emit("schur", kernel=name, c_words=[m, nw], k=k, r0=r0,
+                     c0w=c0w, equal=same, **t)
+            del want, c_old, c_new
+        del c0, lp0, up0
+
+
+def batched_in_turns(old_pkg, seed: int) -> None:
+    """4b and 6b of both trees on the batched sweep's operands, the single
+    Schur and elimination launches, then three batched entry points."""
+    from m4ri_tpu_torch.benches.split_batched import (MCELIECE, NIST,
+                                                      capture_panel, stack)
+    B, m, n = MCELIECE
+    data = stack(seed, B, m, n)
+    first = capture_panel(data, n, False)
+    second = capture_panel(data, n, False, panel=1)
+    mods = {t: (sub(pkg, "ops.hopper_schur"), sub(pkg, "ops.hopper_post"))
+            for t, pkg in (("old", old_pkg), ("new", new_pkg))}
+    c, lp, up, r0s, c0w = first["gf2_schur_update_batched_hopper"]
+    outs = {}
+    for t, (sch, _) in mods.items():
+        outs[t] = sch.gf2_schur_update_batched_hopper(c.clone(), lp, up, r0s,
+                                                      c0w)
+    torch.cuda.synchronize()
+    cc = {t: c.clone() for t in mods}
+    fns = {t: (lambda t=t: mods[t][0].gf2_schur_update_batched_hopper(
+        cc[t], lp, up, r0s, c0w)) for t in mods}
+    emit("batched_kernel", kernel="gf2_schur_update_batched_hopper",
+         operands="McEliece first panel", shape=list(c.shape) + [up.shape[1]],
+         equal=same_all(outs["old"], outs["new"]),
+         **in_pairs(fns["old"], fns["new"], event_ms, runs=5, warmup=1))
+    del c, lp, up, cc, outs
+    for label, ops in (("McEliece first panel",
+                        first["panel_post_hopper_batched"]),
+                       ("McEliece second panel (no row in range)",
+                        second["panel_post_hopper_batched"])):
+        fns = {t: (lambda t=t: mods[t][1].panel_post_hopper_batched(*ops))
+               for t in mods}
+        same = same_all(fns["old"](), fns["new"]())
+        emit("batched_kernel", kernel="panel_post_hopper_batched",
+             operands=label, shape=list(ops[0].shape), equal=same,
+             **in_pairs(fns["old"], fns["new"], event_ms, runs=5, warmup=1))
+    del first, second, fns
+
+    # the single launches whose kernels share the batched ones' code
+    rng = np.random.default_rng(seed)
+    schur_in_turns(old_pkg, rng, timer=in_pairs)
+    for m_pad, nb, below0, mvalid in ((17152, 512, 576, 16384),
+                                      (34048, 1024, 1088, 32768)):
+        xw = packed(rng, m_pad, nb)
+        msm, wm = (torch.from_numpy((rng.random((nb, nb)) < 0.5)
+                                    .astype(np.int8)).cuda() for _ in range(2))
+        cmb = torch.from_numpy((rng.random(nb) < 0.2).astype(np.int8)).cuda()
+        fns = {t: (lambda t=t: mods[t][1].panel_post_hopper(
+            xw, msm, wm, cmb, below0, mvalid)) for t in mods}
+        same = same_all(fns["old"](), fns["new"]())
+        emit("single_post", rows=m_pad, nb=nb, below0=below0, mvalid=mvalid,
+             equal=same, **in_pairs(fns["old"], fns["new"], event_ms))
+        del xw, msm, wm, cmb
+
+    # end to end
+    Bn, nn = NIST
+    isd = stack(seed + 10, 1024, 768, 768)
+    nist = stack(seed + 1, Bn, nn, nn)
+    for label, name, args, pairs in (
+            ("ple_batched 256 x 768x3488", "ple_batched", (data, n), 10),
+            ("invert_batched 1024 x 768^2", "invert_batched", (isd,), 10),
+            ("rank_batched 2^20 x 32^2", "rank_batched", (nist, nn), 10)):
+        fn_o, fn_n = getattr(old_pkg, name), getattr(new_pkg, name)
+        same = same_all(fn_o(*args), fn_n(*args))
+        emit("batched_entry", entry=label, equal=same,
+             **in_pairs(lambda: fn_o(*args), lambda: fn_n(*args), host_ms,
+                        runs=1))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", required=True)
@@ -188,6 +316,9 @@ def main() -> None:
                     help="kernels only, no factorizations")
     ap.add_argument("--solver", action="store_true",
                     help="the single-matrix solver entry points only")
+    ap.add_argument("--batched", action="store_true",
+                    help="the batched launches 4b / 6b, the single launches "
+                         "that share their code, three batched entry points")
     ap.add_argument("--seed", type=int, default=17)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -200,6 +331,9 @@ def main() -> None:
     rng = np.random.default_rng(args.seed)
     if args.solver:
         solver_in_turns(old_pkg, rng)
+        return
+    if args.batched:
+        batched_in_turns(old_pkg, 900)
         return
 
     # ---- the GEMM wrappers, then the products a user calls
@@ -229,33 +363,8 @@ def main() -> None:
         emit("mul", n=n, equal=same, **t)
         del A, B, Ao, Bo
 
-    plain = sub(new_pkg, "ops.hopper_schur").gf2_schur_update_plain
-
     # ---- the Schur update: C, k and the first and the middle panel
-    for (m, nw, k, panels) in [(17152, 512, 512, [(0, 16), (8192, 272)]),
-                               (34048, 1024, 1024, [(0, 32), (16384, 544)])]:
-        c0 = packed(rng, m, nw * 32)
-        lp0, up0 = packed(rng, m, k), packed(rng, k, nw * 32)
-        for (r0, c0w) in panels:
-            lp, up = lp0.clone(), up0.clone()
-            lp[:r0] = 0
-            up[:, :c0w] = 0
-            want = plain(c0.clone(), lp, up)
-            c_old, c_new = c0.clone(), c0.clone()
-            old, new = (schur_calls(old_pkg, c_old, lp, up, r0, c0w),
-                        schur_calls(new_pkg, c_new, lp, up, r0, c0w))
-            for name in old:
-                c_old.copy_(c0)
-                c_new.copy_(c0)
-                old[name]()
-                new[name]()
-                torch.cuda.synchronize()
-                same = torch.equal(c_old, want) and torch.equal(c_new, want)
-                t = in_turns(old[name], new[name], event_ms)
-                emit("schur", kernel=name, c_words=[m, nw], k=k, r0=r0,
-                     c0w=c0w, equal=same, **t)
-            del want, c_old, c_new
-        del c0, lp0, up0
+    schur_in_turns(old_pkg, rng)
     if args.quick:
         return
 

@@ -37,11 +37,13 @@
 //     four stages that both groups read.  The contraction is k rounded up to
 //     256 bits: no MMA multiplies words that are zero-filled because a stage
 //     is wider.
-//   * C: each group's half tile (4 KB) is copied into shared memory
-//     (cp.async, 16 bytes a thread) during the previous tile's epilogue and
-//     the tile's own MMAs; the parity words are XORed into it there and it
-//     goes back with 16-byte stores, a row a pair of threads.  One block
-//     owns a tile, so no atomics.
+//   * C: each group keeps a ring of NC half tiles (4 KB each) in shared
+//     memory and has the next NC - 1 of its tiles' C in flight (cp.async,
+//     16 bytes a thread): the whole C round trip hides behind the MMAs of
+//     the tiles in between, where one half tile in flight had left it
+//     exposed at every tile.  The parity words are XORed into the tile
+//     there and it goes back with 16-byte stores, a row a pair of threads.
+//     One block owns a tile, so no atomics.
 // The inner product is mma.sync m16n8k256 .b1 .and.popc on the packed
 // words (gf2_tile.cuh): 10,400 Tbit-op/s measured for the instruction, which
 // is as far as one panel of contraction can use; wgmma b1, which the GEMM
@@ -53,10 +55,18 @@
 // operand with its own batch stride, r0 one int per element on the card, c0w
 // one int for all.  The persistent grid walks the concatenation of the
 // elements' active rectangles, element-major: cum[b] is the inclusive prefix
-// sum of the active tiles of elements 0..b, so a block finds its first tile
-// by a binary search over cum and then walks on without a division.  A block
+// sum of the active tiles of elements 0..b, which a first launch
+// (prefix_sum_kernel) writes on the card, so a block finds its first tile by
+// a binary search over cum and then walks on without a division.  A block
 // reloads its band of Lp when the (element, row tile) pair changes; Up^T is
-// staged one block of tiles an element.
+// staged one block of tiles an element.  What bounded the batched launch at
+// the batch's shapes (elements of 512-768 rows, k = 512, 12-14 column
+// tiles: a block takes some 70 tiles and changes band every 12) was C's
+// round trip, a tile's worth of latency at every tile: with a part left out
+// (benches/variants_batched.py), the update took 0.44 ms at the McEliece
+// first panel and 0.14 ms with C's loads and stores left out.  The ring of C above is the answer; the prefix
+// sum made on the card spares the host the tensor operations that made it
+// (a third of the call's time on the host clock).
 #include "gf2_sm90.cuh"
 #include "gf2_tile.cuh"
 
@@ -69,6 +79,7 @@ constexpr int TW = 8;            // words of a tile row
 constexpr int TN = TW * 32;      // columns of a tile
 constexpr int KW_MAX = 32;       // contraction words of one launch (4 k-steps)
 constexpr int RING = 4;          // stages of Up^T
+constexpr int NC = 6;            // C half-tiles a group holds: NC - 1 in flight
 constexpr int GT = 256;          // threads of a group: 8 warps, 4 (rows) x 2
 constexpr int NT = 2 * GT;       // threads of a block
 constexpr int TR_ROWS = 9;       // padded row of the pre-pass's staging
@@ -180,7 +191,15 @@ struct Args {
   Bounds bd;
   // batched only: elements, batch strides of C and Lp in words, and the
   // inclusive prefix sum of the elements' active tiles
-  int batch; long bsc, bsl; const long long* cum;
+  int batch; long bsc, bsl; long long* cum;
+};
+
+// Active tiles of element e, the batched launch's prefix sum's terms.
+struct ActiveTiles {
+  Bounds bd; int tiles_i, n_j;
+  __device__ long long operator()(int e) const {
+    return (long long)max(tiles_i - read_r0(bd, e) / TM, 0) * n_j;
+  }
 };
 
 // first row tile of element `elem`'s active rectangle
@@ -190,7 +209,7 @@ __device__ __forceinline__ int elem_i0(const Args& a, long elem) {
 
 template <int KS>
 constexpr int smem_bytes() {
-  return RING * TN * KS * 8 * 4 + 2 * TM * TW * 4 + 2 * RING * 8;
+  return RING * TN * KS * 8 * 4 + 2 * NC * GM * TW * 4 + 2 * RING * 8;
 }
 
 // the barrier of one group of 8 warps (id 0 is __syncthreads')
@@ -254,7 +273,8 @@ __global__ void __launch_bounds__(NT, 1) schur_kernel(Args a) {
   constexpr int RW = KS * 8;
   constexpr int STAGE = TN * RW;                 // words of one Up^T tile
   uint32_t* stage = smem;
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + RING * STAGE + 2 * TM * TW);
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(smem + RING * STAGE + 2 * NC * GM * TW);
   uint64_t* empty = full + RING;
 
   // the active rectangle and this block's run of it
@@ -286,7 +306,7 @@ __global__ void __launch_bounds__(NT, 1) schur_kernel(Args a) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int grp = warp >> 3, gt = tid & (GT - 1);
   const int wm = (warp & 7) >> 1, wn = warp & 1, g = lane >> 2, tig = lane & 3;
-  uint32_t* cbuf = smem + RING * STAGE + grp * 2 * GM * TW;   // this group's
+  uint32_t* cbuf = smem + RING * STAGE + grp * NC * GM * TW;  // this group's
   Walk<BATCH> cur(b0, s0, i0, j0, n_j), c_next = cur, b_next = cur;
 
   if (tid == 0) {
@@ -309,7 +329,7 @@ __global__ void __launch_bounds__(NT, 1) schur_kernel(Args a) {
       b_next.next(a, j0);
     }
   };
-  // the group's half of C tile i into its buffer i & 1: thread gt copies
+  // the group's half of C tile i into its buffer i % NC: thread gt copies
   // words 4*(gt&1).. of row gt>>1; what lies past the edge of C is neither
   // read nor written
   const int cr = gt >> 1, cw = 4 * (gt & 1);
@@ -320,7 +340,7 @@ __global__ void __launch_bounds__(NT, 1) schur_kernel(Args a) {
       c_next.next(a, j0);
       const int valid = row < a.m ? min(max(a.nw - w, 0), 4) : 0;
       const uint32_t* p = valid ? ce + (long)row * a.ldc + w : a.c;
-      const uint32_t d = smem_addr(cbuf + (i & 1) * GM * TW + cr * TW + cw);
+      const uint32_t d = smem_addr(cbuf + (i % NC) * GM * TW + cr * TW + cw);
       if (a.vec_c) {
         cp_async16(d, p, valid * 4);
       } else {
@@ -334,7 +354,7 @@ __global__ void __launch_bounds__(NT, 1) schur_kernel(Args a) {
 
   if (tid == 0)
     for (int i = 0; i < RING; ++i) load_b(i);
-  load_c(0);
+  for (int i = 0; i < NC - 1; ++i) load_c(i);
 
   uint32_t af[2][KS][4];                         // this warp's rows of the band
   long band = -1;
@@ -381,7 +401,7 @@ __global__ void __launch_bounds__(NT, 1) schur_kernel(Args a) {
       if (h == 0) parity_bits<0>(acc, word);
       else parity_bits<1>(acc, word);
     }
-    cp_async_wait<0>();    // this tile's C (the only copy in flight) ...
+    cp_async_wait<NC - 2>();   // this tile's C (later tiles' may pend) ...
     group_sync(grp);       // ... has landed for the group, which is done
     if (gt == 0) {         // with stage i % RING
       mbar_arrive(&empty[i % RING]);
@@ -391,8 +411,8 @@ __global__ void __launch_bounds__(NT, 1) schur_kernel(Args a) {
         load_b(i + RING);
       }
     }
-    load_c(i + 1);         // into the buffer the previous tile stored from
-    uint32_t* cs = cbuf + (i & 1) * GM * TW;
+    load_c(i + NC - 1);    // into the buffer the previous tile stored from
+    uint32_t* cs = cbuf + (i % NC) * GM * TW;
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
@@ -447,6 +467,9 @@ cudaError_t launch(const Args& a, const uint32_t* up, long ldu, long bsu,
   const int xb = ((a.tiles_j - j0_host) * TW + 31) / 32;
   const long gx = BATCH ? (long)xb * a.batch : xb;
   if (gx > 0x7fffffffL) return cudaErrorInvalidConfiguration;
+  if (BATCH)
+    prefix_sum_kernel<<<1, SCAN_THREADS, 0, st>>>(
+        ActiveTiles{a.bd, a.tiles_i, a.tiles_j - j0_host}, a.batch, a.cum);
   schur_transpose_kernel<KS, BATCH><<<dim3((unsigned)gx, KS), 256, 0, st>>>(
       up, ldu, bsu, k, a.nw, a.tiles_j, a.bd, a.skip, xb, ut);
   cudaError_t err = cudaGetLastError();
@@ -521,15 +544,16 @@ extern "C" int gf2_schur_hopper_launch(
 
 // The batched update: batch elements, element e at c + e*bsc, lp + e*bsl,
 // up + e*bsu (strides in words, each a shape as above).  r0p: one int an
-// element on the card, or null and r0 for all; c0w for all.  cum: batch
-// long longs on the card, the inclusive prefix sum over elements of
-// max(ceil(m/256) - max(r0_e, 0)/256, 0) * (ceil(nw/8) - j0); j0 =
-// max(c0w/8, 0), < ceil(nw/8).  ut: batch * (ceil(nw/8) - j0) * 256 * 8*ks
-// words, 16-byte aligned.  blocks: the grid, >= 1.
+// element on the card, or null and r0 for all; c0w for all.  cum: scratch of
+// batch long longs on the card, where a first launch writes the inclusive
+// prefix sum over elements of max(ceil(m/256) - max(r0_e, 0)/256, 0) *
+// (ceil(nw/8) - j0); j0 = max(c0w/8, 0), < ceil(nw/8).  ut: batch *
+// (ceil(nw/8) - j0) * 256 * 8*ks words, 16-byte aligned.  blocks: the grid,
+// >= 1.  Three launches: the prefix sum, the pre-pass, the update.
 extern "C" int gf2_schur_hopper_batched_launch(
     void* c, long ldc, long bsc, const void* lp, long ldl, long bsl, int kwl,
     const void* up, long ldu, long bsu, int k, void* ut, const void* r0p,
-    const void* cum, int r0, int c0w, int m, int nw, int batch, int ks,
+    void* cum, int r0, int c0w, int m, int nw, int batch, int ks,
     int blocks, void* stream) {
   using namespace gf2;
   using namespace gf2::schur;
@@ -543,7 +567,7 @@ extern "C" int gf2_schur_hopper_batched_launch(
          nw, (m + TM - 1) / TM, tiles_j, j0,
          aligned16(c, ldc) && bsc % 4 == 0,
          Bounds{static_cast<const int*>(r0p), nullptr, r0, c0w}, batch, bsc,
-         bsl, static_cast<const long long*>(cum)};
+         bsl, static_cast<long long*>(cum)};
   const auto* u = static_cast<const uint32_t*>(up);
   auto* t = static_cast<uint32_t*>(ut);
   cudaStream_t st = static_cast<cudaStream_t>(stream);

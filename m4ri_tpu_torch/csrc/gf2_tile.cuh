@@ -1,7 +1,8 @@
 // Shared pieces of the kernels built on the GF(2) tile product
 // (gf2_gemm_hopper.cu, gf2_schur_hopper.cu, gf2_post_hopper.cu): the 32x32
 // bit transpose of the pre-passes, the staging of operand tiles in shared
-// memory, the 1-bit tensor-core inner product and the parity/pack epilogue.
+// memory, the 1-bit tensor-core inner product, the parity/pack epilogue and
+// the prefix sum the batched launches walk their work by.
 //
 // Inner product: mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc.
 // It takes A rows packed along k, which is how the packed matrix lies in
@@ -56,11 +57,17 @@ __device__ __forceinline__ void mma_b1(int (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// ---- staging: global -> shared with cp.async, STAGES deep ----
+// ---- staging: global -> shared with cp.async ----
 
-constexpr int STAGES = 2;
-constexpr int STAGE_WORDS = (BM + BN) * LDS;             // A tile then B tile
-constexpr int SMEM_BYTES = STAGES * STAGE_WORDS * 4;     // dynamic shared memory
+constexpr int CHUNK_WORDS = BM * LDS;   // 128 rows x KC words of A or BT
+constexpr int RING_B = 4;               // chunks of BT a product keeps in flight
+static_assert(BM == BN, "A and BT chunks share one shape");
+
+// Dynamic shared memory of tile_products over ksteps k-steps: A's chunks,
+// then the ring of BT's.
+__host__ __device__ constexpr int tile_smem_bytes(int ksteps) {
+  return (ksteps + RING_B) * CHUNK_WORDS * 4;
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -109,40 +116,63 @@ __device__ __forceinline__ void load_tile_async(uint32_t* dst,
   }
 }
 
-// acc += AND-popcount of A[m0.., kbeg..kend) with BT[n0.., kbeg..kend).
-// Warp (wm, wn) owns rows wm*32..+31 and columns wn*64..+63 of the tile:
-// 2 m16 tiles x 8 n8 tiles.  Within a 256-bit step, thread `tig` of a group
-// feeds words 2*tig and 2*tig+1 to both operands; the instruction only asks
-// that A and B agree on which contraction bits meet, so one 64-bit shared
-// load fills two fragment registers.  The copy of step i+STAGES-1 is in
-// flight while step i is multiplied; one barrier a step.
-__device__ __forceinline__ void tile_mainloop(
-    int (&acc)[2][8][4], const uint32_t* __restrict__ a, long lda, int m,
-    bool vec_a, const uint32_t* __restrict__ bt, long ldbt, int n, int m0,
-    int n0, int kbeg, int kend, uint32_t* smem) {
+// The products of the 128-row tile of A at m0 with every 128-column tile of
+// BT (its rows [0, n)), over the contraction words [0, kw): step v is
+// column tile v / ksteps, k-step v % ksteps.  A's tile is copied once and
+// stays in shared memory for the whole sweep; BT's chunks stream through a
+// ring of RING_B, RING_B - 1 copies ahead (at nb = 512 every chunk of BT is
+// in flight at once), so a sweep waits about one round trip, not one a
+// step.  pre(ct) is called before a column tile's first step (to start
+// loads its epilogue needs), epi(ct, acc) after its last with the
+// AND-popcounts.  Warp (wm, wn) owns rows wm*32..+31 and columns
+// wn*64..+63 of a column tile: 2 m16 tiles x 8 n8 tiles.  Within a 256-bit
+// step, thread `tig` of a group feeds words 2*tig and 2*tig+1 to both
+// operands; the instruction only asks that A and B agree on which
+// contraction bits meet, so one 64-bit shared load fills two fragment
+// registers.  Words past kw (zero-filled) are not multiplied.  One barrier a
+// step; the caller syncs before smem is reused.
+template <typename Pre, typename Epi>
+__device__ __forceinline__ void tile_products(
+    const uint32_t* __restrict__ a, long lda, int m, bool vec_a,
+    const uint32_t* __restrict__ bt, long ldbt, int n, int m0, int kw,
+    uint32_t* smem, Pre pre, Epi epi) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wm = warp >> 1, wn = warp & 1;
   const int g = lane >> 2, tig = lane & 3;
-  const int steps = (kend - kbeg + KC - 1) / KC;
-  auto start_copy = [&](int step) {
-    if (step < steps) {
-      uint32_t* as = smem + (step % STAGES) * STAGE_WORDS;
-      const int k0 = kbeg + step * KC;
-      load_tile_async(as, a, lda, m0, m, k0, kend, vec_a);
-      load_tile_async(as + BM * LDS, bt, ldbt, n0, n, k0, kend, true);
-    }
+  const int ksteps = (kw + KC - 1) / KC;
+  const int total = (n + BN - 1) / BN * ksteps;
+  uint32_t* ring = smem + ksteps * CHUNK_WORDS;
+  auto copy_b = [&](int v) {
+    if (v < total)
+      load_tile_async(ring + v % RING_B * CHUNK_WORDS, bt, ldbt,
+                      v / ksteps * BN, n, v % ksteps * KC, kw, true);
     cp_async_commit();  // an empty group keeps the count uniform
   };
+  for (int k = 0; k < ksteps; ++k)      // A joins the first group
+    load_tile_async(smem + k * CHUNK_WORDS, a, lda, m0, m, k * KC, kw, vec_a);
 #pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) start_copy(s);
-  for (int step = 0; step < steps; ++step) {
-    cp_async_wait<STAGES - 2>();   // this step's tiles have landed (own copies)
-    __syncthreads();               // ... everyone's; and step-1 is fully read
-    start_copy(step + STAGES - 1); // refill the buffer step-1 used
-    const uint32_t* as = smem + (step % STAGES) * STAGE_WORDS;
-    const uint32_t* bs = as + BM * LDS;
+  for (int v = 0; v < RING_B - 1; ++v) copy_b(v);
+  int acc[2][8][4];
+  for (int v = 0; v < total; ++v) {
+    const int ct = v / ksteps, kstep = v % ksteps;
+    if (kstep == 0) {
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0;
+      pre(ct);
+    }
+    cp_async_wait<RING_B - 2>();  // this step's chunks have landed (own copies)
+    __syncthreads();              // ... everyone's; and step v-1 is fully read
+    copy_b(v + RING_B - 1);       // into the slot step v-1 used
+    const uint32_t* as = smem + kstep * CHUNK_WORDS;
+    const uint32_t* bs = ring + v % RING_B * CHUNK_WORDS;
+    const int words = min(KC, kw - kstep * KC);
 #pragma unroll
     for (int ks = 0; ks < KC / 8; ++ks) {
+      if (ks * 8 >= words) break;
       uint32_t fa[2][4];
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt) {
@@ -159,6 +189,7 @@ __device__ __forceinline__ void tile_mainloop(
         mma_b1(acc[1][nt], fa[1], fb.x, fb.y);
       }
     }
+    if (kstep == ksteps - 1) epi(ct, acc);
   }
 }
 
@@ -197,15 +228,62 @@ __device__ __forceinline__ void for_each_parity_word(const int (&acc)[2][8][4],
   }
 }
 
+// ---- prefix sums of per-element counts, on the card ----
+
+// cum[e] = count(0) + ... + count(e) for e < n, in one block of 32 warps:
+// warp w owns the run [w*L, (w+1)*L), L = ceil(n/32), and reads it 32
+// consecutive elements at a time; one pass sums each run, one warp scans the
+// 32 sums, a second pass writes the run's inclusive scan (warp shuffles and
+// a carry).  The batched kernels walk their work items through such sums,
+// made on the stream ahead of them, so that nothing is read back.
+constexpr int SCAN_THREADS = 1024;
+
+template <typename Count>
+__global__ void __launch_bounds__(SCAN_THREADS)
+prefix_sum_kernel(Count count, int n, long long* __restrict__ cum) {
+  __shared__ long long part[SCAN_THREADS / 32];
+  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
+  const int run = (n + SCAN_THREADS / 32 - 1) / (SCAN_THREADS / 32);
+  const int lo = min(w * run, n), hi = min(lo + run, n);
+  long long s = 0;
+  for (int e = lo + l; e < hi; e += 32) s += count(e);
+#pragma unroll
+  for (int d = 16; d; d >>= 1) s += __shfl_xor_sync(0xffffffffu, s, d);
+  if (l == 0) part[w] = s;
+  __syncthreads();
+  if (w == 0) {
+    long long v = part[l];
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const long long u = __shfl_up_sync(0xffffffffu, v, d);
+      if (l >= d) v += u;
+    }
+    part[l] = v;
+  }
+  __syncthreads();
+  long long carry = w ? part[w - 1] : 0;
+  for (int e0 = lo; e0 < hi; e0 += 32) {
+    const int e = e0 + l;
+    long long v = e < hi ? count(e) : 0;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const long long u = __shfl_up_sync(0xffffffffu, v, d);
+      if (l >= d) v += u;
+    }
+    if (e < hi) cum[e] = carry + v;
+    carry += __shfl_sync(0xffffffffu, v, 31);
+  }
+}
+
 inline bool aligned16(const void* p, long ld_words) {
   return (reinterpret_cast<uintptr_t>(p) % 16 == 0) && (ld_words % 4 == 0);
 }
 
 // More than 48 KB of shared memory a block must be asked for, once a kernel.
 template <typename Kernel>
-inline cudaError_t allow_smem(Kernel kernel) {
+inline cudaError_t allow_smem(Kernel kernel, int bytes) {
   return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
 }  // namespace gf2

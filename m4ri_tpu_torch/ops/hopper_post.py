@@ -11,22 +11,28 @@ miss check off).  For the rows in ``[below0, mvalid)``
 and every other row passes through with lam = 0.  Returns ``(vw, lamw,
 miss)``: packed v, packed lam, and a 0-dim bool tensor.
 
-What bounds it on an H100: bytes; three panels of words against a
-microsecond of 1-bit MMA.  The kernel (csrc/gf2_post_hopper.cu) reads X
-once, forms lam and v a 128-row tile at a time with the packed tile product,
-writes both once and sets the miss flag, one device byte.  It wants the
-two small operands transposed and packed along the contraction, the layout
-of a right operand of the 1-bit MMA: a packing kernel of the same source
-makes them, the packed column mask and the zeroed flag in one launch ahead
-of it, so that a call is two launches (``_packed_transposed`` and
-``_packed_colmask`` are that kernel's plain versions).
+What bounds it on an H100: bytes; the panel's words and the two small
+operands, which arrive as one byte a bit, against microseconds of 1-bit MMA.
+A call is two launches of the same source (csrc/gf2_post_hopper.cu) from one
+call into the library: a packing kernel, a grid sized to the card, writes
+M^T and W^T transposed and packed along the contraction (the layout of a
+right operand of the 1-bit MMA), the packed column mask and the zeroed flag,
+and copies X to v with lam zeroed on every row out of range
+(``_packed_transposed`` and ``_packed_colmask`` are its plain versions);
+then a persistent grid of MMA blocks takes the 128-row tiles that hold a
+row in range, forms lam and v there with the packed tile product, writes
+both once and sets the miss flag, one device byte.
 
 ``panel_post_hopper_batched`` is the same function over a batch of panels:
 ``xw [B, m, nb/32]``, ``m_small`` / ``wmat [B, nb, nb]``, ``colmask_bits
 [B, nb]``, ``below0`` one int32 an element on the card, ``mvalid`` shared;
-it returns ``(vw [B], lamw [B], miss bool [B])``.  The same two kernels run
-it, the batch folded into the grid's x.  ``panel_post_batched_plain`` is its
-plain version, vectorised over the batch.
+it returns ``(vw [B], lamw [B], miss bool [B])``.  An element with no row
+in range passes through whole and its operands are never read; the MMA
+blocks walk the in-range tiles of the batch through their prefix sum, made
+on the card (``_in_range_tiles``; ``post_schedule_batched_plain`` is the
+grid's walk in numpy).  The single call is the batch of one.
+``panel_post_batched_plain`` is its plain version, vectorised over the
+batch.
 """
 
 from __future__ import annotations
@@ -34,13 +40,15 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from ..utils.config import WORD_BITS
 from .mul import _dot_parity, pack_bits, unpack_bits
 
 __all__ = ["panel_post_hopper", "panel_post_plain", "pack_operands_hopper",
-           "panel_post_hopper_batched", "panel_post_batched_plain"]
+           "panel_post_hopper_batched", "panel_post_batched_plain",
+           "post_schedule_batched_plain", "post_pack_schedule_plain"]
 
 _MAX_GRID_X = 2**31 - 1
 _TILE_ROWS = 128  # BM of csrc/gf2_tile.cuh
@@ -95,7 +103,7 @@ def _fns():
     scratch = lib.gf2_panel_post_scratch_words
     scratch.argtypes, scratch.restype = [_INT], _LONG
     bpost = lib.gf2_panel_post_hopper_batched_launch
-    bpost.argtypes = [_VOID, _LONG, _LONG] + [_VOID] * 8 + [_INT] * 4 + [_VOID]
+    bpost.argtypes = [_VOID, _LONG, _LONG] + [_VOID] * 9 + [_INT] * 5 + [_VOID]
     post.restype = pack.restype = bpost.restype = _INT
     return post, pack, scratch, bpost
 
@@ -109,6 +117,75 @@ def _row_words(nb: int) -> int:
 def _scratch_words(nb: int) -> int:
     """Words the kernels want for M^T, W^T and the packed column mask."""
     return _fns()[2](nb)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` dense and 16-byte aligned, as the packing kernel loads it: no
+    copy unless it is not."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _in_range_tiles(below0: torch.Tensor, m: int, mvalid: int) -> torch.Tensor:
+    """Each element's 128-row tiles that hold a row of ``[max(below0_e, 0),
+    min(mvalid, m))``, int64 ``[B]`` on below0's device: the MMA items of the
+    batched launch, whose prefix sum its blocks search (the launch makes the
+    sum on the card itself; this is it in plain PyTorch, for the schedule
+    below).  0: no row in range, and the element's operands are never
+    read."""
+    hi = min(mvalid, m)
+    lo = below0.to(torch.int64).clamp(min=0)
+    t_hi = -(-hi // _TILE_ROWS) if hi > 0 else 0
+    return torch.where(lo < hi, t_hi - lo // _TILE_ROWS, 0)
+
+
+def post_schedule_batched_plain(m: int, below0s, mvalid: int,
+                                blocks: int) -> list:
+    """The MMA grid's walk in numpy: for each of ``blocks`` blocks the
+    (element, 128-row tile) pairs it takes, in order.  Item s of the
+    concatenated in-range tiles (``_in_range_tiles``, element after
+    element) goes to block s % blocks; it is tile ``max(below0_e, 0) // 128
+    + s - cum[e - 1]`` of the element e with ``cum[e - 1] <= s < cum[e]``."""
+    below0s = np.asarray(below0s, np.int64)
+    cum = torch.cumsum(_in_range_tiles(torch.from_numpy(below0s), m, mvalid),
+                       0).numpy()
+    total = int(cum[-1]) if len(cum) else 0
+    out = []
+    for b in range(blocks):
+        s = np.arange(b, total, blocks)
+        e = np.searchsorted(cum, s, side="right")
+        first = np.where(e > 0, cum[np.maximum(e - 1, 0)], 0)
+        t0 = np.maximum(below0s[e], 0) // _TILE_ROWS
+        out.append(np.stack([e, t0 + s - first], axis=1))
+    return out
+
+
+def post_pack_schedule_plain(B: int, nb: int, below0s, m: int, mvalid: int,
+                             warps: int) -> list:
+    """The packing kernel's walk in numpy: for each of ``warps`` warps the
+    units it packs, in order, as (element, plane, 32-column strip, 4-word
+    group) rows; plane 0 is M, 1 is W.  Lane l of warp w tests unit ``r +
+    l * warps`` for r = w, w + 32 * warps, ...; the warp packs, lane after
+    lane, those of elements with a row in range, and no unit of the others
+    (``_in_range_tiles`` 0)."""
+    nbw = nb // WORD_BITS
+    groups = _row_words(nb) // 4
+    per = 2 * nbw * groups
+    units = per * B
+    live = (_in_range_tiles(torch.as_tensor(np.asarray(below0s)), m, mvalid)
+            > 0).numpy()
+    out = []
+    for w in range(warps):
+        got = []
+        for r in range(w, units, 32 * warps):
+            u = r + np.arange(32, dtype=np.int64) * warps
+            u = u[u < units]
+            got.append(u[live[u // per]])
+        u = np.concatenate(got) if got else np.zeros(0, np.int64)
+        e, rem = u // per, u % per
+        z, rem = rem // (nbw * groups), rem % (nbw * groups)
+        out.append(np.stack([e, z, rem // groups, rem % groups], axis=1))
+    return out
 
 
 def _packed_transposed(bits: torch.Tensor) -> torch.Tensor:
@@ -139,8 +216,8 @@ def pack_operands_hopper(m_small: torch.Tensor, wmat: torch.Tensor,
                       device=m_small.device)
     mt, wt = (buf.as_strided((nb, ld), (ld, 1), k * nb * ld) for k in (0, 1))
     colmask = buf.as_strided((nbw,), (1,), 2 * nb * ld)
-    m_small, wmat, colmask_bits = (t.contiguous()       # no copy if dense
-                                   for t in (m_small, wmat, colmask_bits))
+    m_small, wmat = _aligned(m_small), _aligned(wmat)
+    colmask_bits = colmask_bits.contiguous()
     with torch.cuda.device(buf.device):
         err = _fns()[1](m_small.data_ptr(), wmat.data_ptr(),
                         colmask_bits.data_ptr(), mt.data_ptr(), wt.data_ptr(),
@@ -173,8 +250,8 @@ def panel_post_hopper(xw: torch.Tensor, m_small: torch.Tensor,
     miss = torch.empty((), dtype=torch.bool, device=dev)
     if m == 0 or nbw == 0:
         return vw, lamw, miss.zero_()
-    m_small, wmat, colmask_bits = (t.contiguous()       # no copy if dense
-                                   for t in (m_small, wmat, colmask_bits))
+    m_small, wmat = _aligned(m_small), _aligned(wmat)
+    colmask_bits = colmask_bits.contiguous()
     base = buf.data_ptr()
     with torch.cuda.device(dev):
         err = _fns()[0](xw.data_ptr(), xw.stride(0), m_small.data_ptr(),
@@ -234,35 +311,43 @@ def panel_post_batched_plain(xw: torch.Tensor, m_small: torch.Tensor,
 def panel_post_hopper_batched(xw: torch.Tensor, m_small: torch.Tensor,
                               wmat: torch.Tensor, colmask_bits: torch.Tensor,
                               below0: torch.Tensor, mvalid: int):
-    """The fused elimination of every panel of a batch, in one call of two
-    launches.  ``xw`` may be a view with any row and batch stride.  CPU
-    tensors take the plain version; CUDA tensors launch the kernels or
-    raise."""
+    """The fused elimination of every panel of a batch, in one call into
+    the library: the prefix sum of the in-range tiles, the packing and copy,
+    the elimination.  ``xw`` may be a view with any row and batch stride.
+    CPU tensors take the plain version; CUDA tensors launch the kernels or
+    raise.  Nothing is read back: each element's row range stays on the
+    card."""
     _check_batched(xw, m_small, wmat, colmask_bits, below0)
     if not xw.is_cuda:
         return panel_post_batched_plain(xw, m_small, wmat, colmask_bits,
                                         below0, mvalid)
+    device = xw.get_device()
+    if torch.cuda.current_device() != device:
+        with torch.cuda.device(device):
+            return panel_post_hopper_batched(xw, m_small, wmat, colmask_bits,
+                                             below0, mvalid)
     B, m, nbw = xw.shape
     dev = xw.device
     body = (B * m * nbw + 3) // 4 * 4       # keeps every part 16-byte aligned
-    buf = torch.empty(2 * body + B * _scratch_words(nbw * WORD_BITS),
-                      dtype=torch.int32, device=dev)
+    ops = B * _scratch_words(nbw * WORD_BITS)
+    # v, lam, the packed operands, then the in-range tiles' prefix sum that
+    # the launch makes on the card (B long longs)
+    buf = torch.empty(2 * body + ops + 2 * B, dtype=torch.int32, device=dev)
     vw = buf.as_strided((B, m, nbw), (m * nbw, nbw, 1), 0)
     lamw = buf.as_strided((B, m, nbw), (m * nbw, nbw, 1), body)
     miss = torch.empty(B, dtype=torch.bool, device=dev)
     if m == 0 or nbw == 0:
         return vw, lamw, miss.zero_()
-    m_small, wmat, colmask_bits = (t.contiguous()       # no copy if dense
-                                   for t in (m_small, wmat, colmask_bits))
+    m_small, wmat = _aligned(m_small), _aligned(wmat)
+    colmask_bits = colmask_bits.contiguous()
     below0 = below0.to(torch.int32).contiguous()
     base = buf.data_ptr()
-    with torch.cuda.device(dev):
-        err = _fns()[3](xw.data_ptr(), xw.stride(1), xw.stride(0),
-                        m_small.data_ptr(), wmat.data_ptr(),
-                        colmask_bits.data_ptr(), base + 8 * body, base,
-                        base + 4 * body, miss.data_ptr(), below0.data_ptr(),
-                        B, m, nbw, int(mvalid),
-                        torch.cuda.current_stream().cuda_stream)
+    err = _fns()[3](xw.data_ptr(), xw.stride(1), xw.stride(0),
+                    m_small.data_ptr(), wmat.data_ptr(),
+                    colmask_bits.data_ptr(), base + 8 * body, base,
+                    base + 4 * body, miss.data_ptr(), below0.data_ptr(),
+                    base + 4 * (2 * body + ops), 0, B, m, nbw, int(mvalid),
+                    torch._C._cuda_getCurrentRawStream(device))
     panel_post_hopper_batched.launches += 1
     if err:
         raise RuntimeError(f"panel_post_hopper_batched: CUDA error {err} at "

@@ -32,10 +32,12 @@ lp and up may be views with any row stride, the words of a row adjacent.
 
 ``gf2_schur_update_batched_hopper`` is the same update over a batch axis,
 ``c[b] ^= lp[b]*up[b]`` for each element, with ``r0`` an int or one int32 a
-element on the card and ``c0w`` an int.  One launch (one for each KW_MAX
-words of contraction) runs a persistent grid over the concatenation of the
-elements' active rectangles (``schur_schedule_batched_plain`` is that
-partition in numpy); batch strides are passed through.
+element on the card and ``c0w`` an int.  One call into the library (one for
+each KW_MAX words of contraction) makes the prefix sum of the elements'
+active tiles on the card, then the pre-pass, then runs a persistent grid
+over the concatenation of the elements' active rectangles
+(``schur_schedule_batched_plain`` is that partition in numpy); batch strides
+are passed through.
 ``gf2_schur_update_plain`` on the stacks is its plain version: one batched
 product for the whole batch, no loop over it.
 """
@@ -119,7 +121,9 @@ def _batched_cum(m: int, nw: int, r0, c0w: int, B: int, device):
     """The inclusive prefix sum over the batch of each element's active
     tiles (int64 [B] on ``device``), the array the batched kernel's blocks
     search: rows from max(r0_e, 0) // TILE_ROWS, column tiles from
-    max(c0w, 0) // TILE_WORDS.  ``r0``: an int, or an int tensor [B]."""
+    max(c0w, 0) // TILE_WORDS.  ``r0``: an int, or an int tensor [B].  The
+    launch makes it on the card itself (``prefix_sum_kernel``, its first
+    kernel); this is that sum in plain PyTorch, for the schedule below."""
     tiles_i, tiles_j = _tiles(m, nw)
     n_j = max(tiles_j - max(c0w, 0) // TILE_WORDS, 0)
     if isinstance(r0, torch.Tensor):
@@ -330,33 +334,38 @@ def gf2_schur_update_batched_hopper(c: torch.Tensor, lp: torch.Tensor,
     j0 = max(c0w, 0) // TILE_WORDS
     if c.numel() == 0 or up.shape[1] == 0 or j0 >= tiles_j:
         return c
-    # the prefix sum of the elements' active tiles, on the card; the grid
-    # no larger than the tiles that may be active as far as the host knows
+    # the grid no larger than the tiles that may be active as far as the
+    # host knows; the launch writes the prefix sum of the elements' active
+    # tiles (``_batched_cum``) on the card itself
     i0 = 0 if r0_t is not None else max(int(r0), 0) // TILE_ROWS
     if i0 >= tiles_i:
         return c
-    cum = _batched_cum(m, nw, r0 if r0_t is None else r0_t, c0w, B, c.device)
     n_j = tiles_j - j0
     upper = B * (tiles_i - i0) * n_j
     blaunch = _fns()[2]
-    with torch.cuda.device(c.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        for lps, ups, ks in _slices(lp, up):
-            blocks = min(upper, _capacity(ks, True))
-            ut = torch.empty(B * n_j * _TILE_COLS * 8 * ks, dtype=torch.int32,
-                             device=c.device)
-            err = blaunch(
-                c.data_ptr(), c.stride(1), c.stride(0), lps.data_ptr(),
-                lps.stride(1), lps.stride(0), lps.shape[2], ups.data_ptr(),
-                ups.stride(1), ups.stride(0), ups.shape[1], ut.data_ptr(),
-                None if r0_t is None else r0_t.data_ptr(), cum.data_ptr(),
-                0 if r0_t is not None else int(r0), c0w, m, nw, B, ks, blocks,
-                stream)
-            gf2_schur_update_batched_hopper.launches += 1
-            if err:
-                raise RuntimeError(
-                    f"gf2_schur_update_batched_hopper: CUDA error {err} at "
-                    f"launch (B={B}, c {m}x{nw} words, k={up.shape[1]})")
+    device = c.get_device()
+    if torch.cuda.current_device() != device:
+        with torch.cuda.device(device):
+            return gf2_schur_update_batched_hopper(c, lp, up, r0, c0w)
+    stream = torch._C._cuda_getCurrentRawStream(device)
+    for lps, ups, ks in _slices(lp, up):
+        blocks = min(upper, _capacity(ks, True))
+        # Up^T scratch, then the prefix sum (B long longs, 16-byte aligned)
+        tw = B * n_j * _TILE_COLS * 8 * ks
+        scratch = torch.empty(tw + 2 * B, dtype=torch.int32, device=c.device)
+        base = scratch.data_ptr()
+        err = blaunch(
+            c.data_ptr(), c.stride(1), c.stride(0), lps.data_ptr(),
+            lps.stride(1), lps.stride(0), lps.shape[2], ups.data_ptr(),
+            ups.stride(1), ups.stride(0), ups.shape[1], base,
+            None if r0_t is None else r0_t.data_ptr(), base + 4 * tw,
+            0 if r0_t is not None else int(r0), c0w, m, nw, B, ks, blocks,
+            stream)
+        gf2_schur_update_batched_hopper.launches += 1
+        if err:
+            raise RuntimeError(
+                f"gf2_schur_update_batched_hopper: CUDA error {err} at "
+                f"launch (B={B}, c {m}x{nw} words, k={up.shape[1]})")
     return c
 
 

@@ -731,6 +731,49 @@ def test_batched_post_kernel_equals_plain(card, B, m, nb):
     assert bool(got[2].any())
 
 
+def test_batched_post_mixes_elements_in_and_out_of_range(card):
+    """Kernel b at the McEliece width (256 elements of 1792 rows, nb = 512,
+    mvalid 768): elements with rows in range (below0 off the 128-row tiles)
+    beside elements with none, whose operands are never read; M given as a
+    view that is not 16-byte aligned."""
+    B, m, nb, mvalid = 256, 1792, 512, 768
+    g = torch.Generator(device="cpu").manual_seed(181)
+    xw = _stack(180, B, m, nb, card)
+    msm_wide, wm = (torch.randint(0, 2, (B, nb, nb + 1 if k else nb),
+                                  generator=g, dtype=torch.int8).to(card)
+                    for k in (1, 0))
+    msm = msm_wide[:, :, 1:]
+    cmb = (torch.rand((B, nb), generator=g) < 0.05).to(torch.int8).to(card)
+    below0 = torch.randint(0, m + 200, (B,), generator=g,
+                           dtype=torch.int32).to(card)
+    below0[:4] = torch.tensor([577, 767, 768, 0], dtype=torch.int32)
+    got = hopper_post.panel_post_hopper_batched(xw, msm, wm, cmb, below0, mvalid)
+    want = hopper_post.panel_post_batched_plain(xw, msm, wm, cmb, below0,
+                                                mvalid)
+    torch.cuda.synchronize()
+    for a, b, what in zip(got, want, ("v", "lam", "miss")):
+        assert torch.equal(a, b), what
+    out = below0 >= mvalid
+    assert bool(out.any()) and bool((~out).any())
+    assert not bool(got[2][out].any())
+
+
+def test_batched_post_with_nothing_in_range_passes_through(card):
+    """Kernel b on 2^16 panels of the NIST shape (nb = 32, 256 rows, below0
+    = mvalid = 32): v equals X, lam and every miss byte are 0."""
+    B, m, nb = 1 << 16, 256, 32
+    xw = torch.randint(-2**31, 2**31, (B, m, 1), dtype=torch.int32,
+                       device=card)
+    msm = torch.ones((B, nb, nb), dtype=torch.int8, device=card)
+    cmb = torch.ones((B, nb), dtype=torch.int8, device=card)
+    below0 = torch.full((B,), 32, dtype=torch.int32, device=card)
+    v, lam, miss = hopper_post.panel_post_hopper_batched(xw, msm, msm, cmb,
+                                                         below0, 32)
+    torch.cuda.synchronize()
+    assert torch.equal(v, xw)
+    assert not bool(lam.any()) and not bool(miss.any())
+
+
 @pytest.mark.parametrize("B,m,k,nw,c0w", [(5, 512, 512, 40, 16),
                                           (1024, 512, 512, 16, 0),
                                           (3, 300, 1100, 37, 9),
@@ -751,6 +794,26 @@ def test_batched_schur_kernel_equals_plain(card, B, m, k, nw, c0w, bound):
     want = hopper_schur.gf2_schur_update_plain(c.clone(), lp, up)
     r0 = 5 if bound == "int" else r0s
     hopper_schur.gf2_schur_update_batched_hopper(c, lp, up, r0, c0w)
+    torch.cuda.synchronize()
+    assert torch.equal(c, want)
+
+
+def test_batched_schur_with_r0_spread_over_the_row_tiles(card):
+    """Kernel c at the McEliece width (768 x 112 words, k = 512): each
+    element's r0 on, inside, at the end of or past its row tiles, and c0w
+    off the 8-word column tiles."""
+    B, m, k, nw, c0w = 64, 768, 512, 112, 21
+    c = _stack(190, B, m, nw * 32, card)
+    lp = _stack(200, B, m, k, card)
+    up = _stack(210, B, k, nw * 32, card)
+    r0s = torch.tensor([0, 1, 255, 256, 257, 511, 512, 700, 767, 768, 800,
+                        5000] * 5 + [-3, 300, 600, 768], dtype=torch.int32,
+                       device=card)
+    rows = torch.arange(m, device=card)
+    lp *= (rows[None, :] >= r0s[:, None]).to(torch.int32)[:, :, None]
+    up[:, :, :c0w] = 0
+    want = hopper_schur.gf2_schur_update_plain(c.clone(), lp, up)
+    hopper_schur.gf2_schur_update_batched_hopper(c, lp, up, r0s, c0w)
     torch.cuda.synchronize()
     assert torch.equal(c, want)
 

@@ -38,7 +38,9 @@ single-matrix ``block_factor``, and ``mul_packed_batched`` of 1024 products
 batched kernels are held to their batched plain versions on the McEliece
 batch's first panel, the trailing update also with r0 spread over the row
 tiles, the below-window elimination also with rows in range for some
-elements only and for none (the sweep's second panel, 2^16 NIST panels);
+elements only and for none (the sweep's second panel, 2^16 NIST panels),
+the pivot loop also on the sweep's third panel (no row in range), on 1024
+ISD windows and on 2^20 NIST windows (a warp a window);
 then the batched solver API at the widths of Classic
 McEliece mceliece348864: ``ple_batched`` / ``pluq_batched``, both RREF
 strategies and ``kernel_left_batched`` of the 256 McEliece matrices,
@@ -239,6 +241,7 @@ def gemm_counts() -> dict:
 def zero_counts() -> None:
     for spec in KERNELS.values():
         spec["fn"].launches = 0
+    hopper_panel.panel_loop_hopper_batched.by_kernel.clear()
 
 
 def plain_rowblocks(a: torch.Tensor, b: torch.Tensor, rows: int = 1024):
@@ -2310,16 +2313,20 @@ TOP_WINDOW = 6 * min(opt_k(768, 3488), 7)
 # the record of a kernel's second operand set, nested in its kernels entry
 SUB_KEYS = ("max_abs_err", "matches_plain", "ms", "plain_ms", "bound_ms",
             "bound_by", "ms_min", "ms_max", "runs", "timed_at", "eliminations",
-            "elements_in_range")
+            "elements_in_range", "kernel_kinds", "chain_floor_ms",
+            "bytes_bound_ms")
 # the nested records of kernels_batched: 5b and 6b on top_echelonize's first
-# panel; 6b with rows in range for some elements only, with none (the
-# McEliece batch's second panel, 2^16 NIST panels); 4b with r0 spread over
-# the row tiles and c0w off the 8-word tiles
+# panel; 5b on the McEliece batch's third panel (nothing in range), on the
+# first panel of 1024 ISD matrices and on the one panel of 2^20 NIST
+# matrices (a warp a window); 6b with rows in range for some elements only,
+# with none (the McEliece batch's second panel, 2^16 NIST panels); 4b with
+# r0 spread over the row tiles and c0w off the 8-word tiles
 NIST_POST = 1 << 16
 SPREAD_C0W = 21
 SUBS = (f"search_window_{TOP_WINDOW}", "miss_check_off", "rows_in_range_mixed",
         "nothing_in_range", f"nist_{NIST_POST}_nothing_in_range",
-        f"r0_spread_c0w_{SPREAD_C0W}")
+        f"r0_spread_c0w_{SPREAD_C0W}", "third_panel_nothing_in_range",
+        "isd_first_panel_1024", f"nist_{NIST[0]}")
 
 
 def phase_batched_kernels(seed: int) -> dict:
@@ -2327,7 +2334,11 @@ def phase_batched_kernels(seed: int) -> dict:
     on the operands the McEliece batch's first panel gives them (the whole
     batch), and their times there beside their bounds; c again with each
     element's r0 spread over its row tiles (some at or past m) and c0w off
-    the 8-word tiles; b again with rows in range for two thirds of the
+    the 8-word tiles; a again on the sweep's third panel (every rank at m:
+    no step taken), on the first panel of 1024 ISD matrices (a block a
+    window, several an SM, as on the first panel) and on the one panel of
+    2^20 NIST 32 x 32 matrices (a warp a window), each checked to take that
+    kernel; b again with rows in range for two thirds of the
     elements only (below0 off the 128-row tiles), and with none: the
     sweep's second panel, and the one panel of 2^16 NIST 32 x 32 matrices
     (v must equal X, lam and every miss byte 0); then a and b on the first
@@ -2361,22 +2372,44 @@ def phase_batched_kernels(seed: int) -> dict:
         return got
 
     def loop_entry(ops_a, sub=None):
-        """a: the pivot loop on 256 windows of 576 rows, nb = 512."""
+        """a: the pivot loop on a batch of windows (256 of 576 rows, nb =
+        512, on the McEliece panels).  The bound is the largest of the bytes
+        (each window read and written once, the index outputs written), the
+        eliminations' XORs at the 32-bit peak, and the chain of nb
+        dependent steps in one warp (``chain_floor``), which no window can
+        go below; bound_by says "bytes", or "operations" for the other
+        two."""
         al0, r0, base, mm, nb, pres, sw = ops_a
-        h, w2 = al0.shape[1:]
+        Bw, h, w2 = al0.shape
         la = (lambda: hopper_panel.panel_loop_hopper_batched(
             al0, r0, base, mm, nb, pres, sw))
         lp_ = (lambda: hopper_panel.panel_loop_batched_plain(
             al0, r0, base, mm, nb, pres, sw))
+        by = hopper_panel.panel_loop_hopper_batched.by_kernel
+        before = dict(by)
         got = la()
+        kinds = {k: n - before.get(k, 0) for k, n in by.items()
+                 if n != before.get(k, 0)}
         # each elimination XORs the pivot row's nb/32 panel words into a row
-        # and sets one multiplier bit: the L half of the output counts them
-        elims = int(popcount32(got[0][:, :, w2 // 2:]).sum())
-        entry("panel_loop_hopper_batched", lambda: got, lp_, la, lp_,
-              roofline(4 * B * (2 * h * w2 + h + 4 * nb + 1),
-                       alu_ops=elims * (w2 // 2)),
-              sub=sub, timed_at=[B, h, w2], eliminations=elims,
-              search_window=sw)
+        # and sets one multiplier bit: the L half of the output minus the
+        # input's counts them
+        elims = int(popcount32(got[0][:, :, w2 // 2:]
+                               ^ al0[:, :, w2 // 2:]).sum())
+        nbytes = 4 * Bw * (2 * h * w2 + h + 4 * nb + 1)
+        bnd = roofline(nbytes, alu_ops=elims * (w2 // 2))
+        chain = time_ms(lambda: hopper_panel.chain_floor(nb, 32))["median"]
+        # the chain binds only where some window has a row in range: a
+        # window without one takes no step
+        r_in = torch.maximum(r0, base)
+        steps = bool((r_in < torch.minimum(base + h, torch.full_like(
+            base, mm))).any())
+        if steps and chain > bnd["bound_ms"]:
+            bnd = {"bound_ms": chain, "bound_by": "operations"}
+        entry("panel_loop_hopper_batched", lambda: got, lp_, la, lp_, bnd,
+              sub=sub, timed_at=[Bw, h, w2], eliminations=elims,
+              search_window=sw, kernel_kinds=kinds, chain_floor_ms=chain,
+              bytes_bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3)
+        return kinds
 
     def post_entry(ops_b, sub=None):
         """b: the elimination below each window (1792 rows a McEliece
@@ -2412,7 +2445,9 @@ def phase_batched_kernels(seed: int) -> dict:
                                   r0s.tolist(), c0w),
               sub=sub, timed_at=list(c.shape) + [up.shape[1]], c0w=c0w)
 
-    loop_entry(ops["panel_loop_hopper_batched"])
+    kinds = loop_entry(ops["panel_loop_hopper_batched"])
+    check(kinds == {"panel_kernel (several an SM)": 1},
+          f"5b took {kinds} on 256 McEliece windows")
     post_entry(ops["panel_post_hopper_batched"])
     # c: the trailing update, C 768 x 112 words (the real rows: the sweep
     # hands the kernel no padding row), k = 512, c0w = 16
@@ -2439,6 +2474,27 @@ def phase_batched_kernels(seed: int) -> dict:
     check(not bool(got[1][out].any()) and torch.equal(got[0][out], xw[out]),
           "6b changed an element with no row in range")
     del ops, c, lp, up, lp_s, up_s, xw, msm, wm, cmb
+
+    # a with nothing in range: the McEliece sweep's third panel, every rank
+    # at m; no step taken, the window passed through
+    only = ("panel_loop_hopper_batched",)
+    third = capture_panel(data, n, False, panel=2,
+                          need=only)["panel_loop_hopper_batched"]
+    check(bool((third[1] >= m).all()), "5b (third panel): a rank below m")
+    got = loop_entry(third, "third_panel_nothing_in_range")
+    # a on the first panel of solve_left_batched's sweep of 1024 ISD
+    # matrices (L preserved): a block a window, several an SM
+    isd = stack_on_card(seed + 903, ISD[0], ISD[1], ISD[1])
+    got = loop_entry(capture_panel(isd, ISD[1], True, need=only)[
+        "panel_loop_hopper_batched"], f"isd_first_panel_{ISD[0]}")
+    check(got == {"panel_kernel (several an SM)": 1}, f"5b (ISD) took {got}")
+    del isd, third
+    # a on the one panel of 2^20 NIST 32 x 32 matrices: a warp a window
+    nist_all = stack_on_card(seed + 904, *NIST, NIST[1])
+    got = loop_entry(capture_panel(nist_all, NIST[1], False, need=only)[
+        "panel_loop_hopper_batched"], f"nist_{NIST[0]}")
+    check(got == {"panel_warp_kernel": 1}, f"5b (NIST) took {got}")
+    del nist_all
 
     # b with nothing in range: the McEliece sweep's second panel, and the
     # one panel of 2^16 NIST 32 x 32 matrices; v = X, lam and miss 0
@@ -2530,6 +2586,9 @@ def phase_batched_rank_nist(seed: int) -> dict:
           and launched["gf2_schur_update_batched_hopper"] == 0,
           f"rank_batched 32x32 launched {batch_counts()}")
     check(syncs == 1 and misses == 0, f"{syncs} read-backs, {misses} fallbacks")
+    kinds = dict(hopper_panel.panel_loop_hopper_batched.by_kernel)
+    check(kinds == {"panel_warp_kernel": 1},
+          f"rank_batched 32x32 took the pivot loop's {kinds}")
     t = time_host_ms(lambda: m4.rank_batched(data, n), runs=3)
     some = 64
     same_as_single(m4.block_factor_batched(data[:some], n, False), data[:some],
@@ -2542,8 +2601,8 @@ def phase_batched_rank_nist(seed: int) -> dict:
          calls_per_s=B / t["median"] * 1e3,
          loop_of_single_rank_ms_per_matrix=loop["median"] / some,
          host_numpy_seconds=host_s, host_syncs=syncs, miss_fallbacks=misses,
-         launches=launched, peak_memory_gb=peak, rank_shares=shares,
-         expected_shares=NIST_SHARES)
+         launches=launched, pivot_loop_kernels=kinds, peak_memory_gb=peak,
+         rank_shares=shares, expected_shares=NIST_SHARES)
     return launched
 
 
@@ -2561,9 +2620,12 @@ def phase_batched_factor_mceliece(seed: int) -> dict:
     for pres in (False, True):
         got, launched, syncs, misses, peak = batched_stats(
             lambda: m4.block_factor_batched(data, n, pres))
+        kinds = dict(hopper_panel.panel_loop_hopper_batched.by_kernel)
         add_counts(total, launched)
         check(all(launched[k] > 0 for k in BATCHED),
               f"McEliece preserve_l={pres} launched {launched}")
+        check(set(kinds) == {"panel_kernel (several an SM)"},
+              f"McEliece preserve_l={pres}: the pivot loop took {kinds}")
         some = LOOP_SLICE if pres else B
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2574,7 +2636,7 @@ def phase_batched_factor_mceliece(seed: int) -> dict:
         per[f"preserve_l={pres}"] = {
             "host_syncs": syncs, "miss_fallbacks": misses, "launches": launched,
             "peak_memory_gb": peak, "ranks": sorted(set(got[3].tolist())),
-            "single_calls": some}
+            "single_calls": some, "pivot_loop_kernels": kinds}
     t = time_host_ms(lambda: m4.block_factor_batched(data, n, False), runs=3)
     emit("batched_factor_mceliece", ok=True, batch=B, shape=[m, n],
          ms=t, calls_per_s=B / t["median"] * 1e3,

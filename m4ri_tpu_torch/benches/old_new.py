@@ -26,13 +26,19 @@ with a 768 x 64 B), each on the host clock ended by a synchronize.
 ``--batched`` times the batched launches instead: the trailing update
 (4b) and the below-window elimination (6b) on the operands the batched
 sweep gives them on the first panel of 256 McEliece matrices (and 6b on its
-second panel, where no row is in range), then the single Schur entry points
-at the four panels above and the single elimination at 17152 / 34048 rows,
-whose kernels share the batched launches' code, each as ``pairs`` pairs of
-CUDA-event medians (the order flipped from pair to pair); then
+second panel, where no row is in range), the pivot loop (5b) on that first
+panel, on its third (no row in range), on the first panel of
+``top_echelonize``'s sweep (a search window of 42), on the first panel of
+1024 ISD matrices and on the one panel of 2^20 NIST matrices; then the
+single Schur entry points at the four panels above, the single elimination
+at 17152 / 34048 rows and the single pivot loop at 576 / 512 and 1088 /
+1024, whose kernels share the batched launches' code, each as ``pairs``
+pairs of CUDA-event medians (the order flipped from pair to pair); then
 ``rank_batched`` of 2^20 32 x 32 matrices, ``ple_batched`` of the 256
-McEliece matrices and ``invert_batched`` of 1024 768² ones, on the host
-clock ended by a synchronize, in pairs as well.
+McEliece matrices, ``invert_batched`` of 1024 768² ones,
+``top_echelonize_batched`` of the 256 in REF and a batch of one 16384² and
+32768² (``block_factor_batched``, L preserved), on the host clock ended by a
+synchronize, in pairs as well.
 One JSON object a line.  Needs the card and ``nvcc``.
 """
 
@@ -242,19 +248,22 @@ def schur_in_turns(old_pkg, rng, timer=in_turns) -> None:
 
 
 def batched_in_turns(old_pkg, seed: int) -> None:
-    """4b and 6b of both trees on the batched sweep's operands, the single
-    Schur and elimination launches, then three batched entry points."""
+    """4b, 6b and 5b of both trees on the batched sweep's operands, the
+    single Schur, elimination and pivot-loop launches, then the batched
+    entry points."""
     from m4ri_tpu_torch.benches.split_batched import (MCELIECE, NIST,
-                                                      capture_panel, stack)
+                                                      capture_panel,
+                                                      loop_operands, stack)
     B, m, n = MCELIECE
     data = stack(seed, B, m, n)
     first = capture_panel(data, n, False)
     second = capture_panel(data, n, False, panel=1)
-    mods = {t: (sub(pkg, "ops.hopper_schur"), sub(pkg, "ops.hopper_post"))
+    mods = {t: (sub(pkg, "ops.hopper_schur"), sub(pkg, "ops.hopper_post"),
+                sub(pkg, "ops.hopper_panel"))
             for t, pkg in (("old", old_pkg), ("new", new_pkg))}
     c, lp, up, r0s, c0w = first["gf2_schur_update_batched_hopper"]
     outs = {}
-    for t, (sch, _) in mods.items():
+    for t, (sch, *_) in mods.items():
         outs[t] = sch.gf2_schur_update_batched_hopper(c.clone(), lp, up, r0s,
                                                       c0w)
     torch.cuda.synchronize()
@@ -276,7 +285,18 @@ def batched_in_turns(old_pkg, seed: int) -> None:
         emit("batched_kernel", kernel="panel_post_hopper_batched",
              operands=label, shape=list(ops[0].shape), equal=same,
              **in_pairs(fns["old"], fns["new"], event_ms, runs=5, warmup=1))
+    loops = {"McEliece first panel": first["panel_loop_hopper_batched"]}
     del first, second, fns
+    loops.update(loop_operands(data, seed))
+    for label, ops in loops.items():
+        fns = {t: (lambda t=t: mods[t][2].panel_loop_hopper_batched(*ops))
+               for t in mods}
+        same = same_all(fns["old"](), fns["new"]())
+        emit("batched_kernel", kernel="panel_loop_hopper_batched",
+             operands=label, shape=list(ops[0].shape), search_window=ops[6],
+             equal=same,
+             **in_pairs(fns["old"], fns["new"], event_ms, runs=5, warmup=1))
+    del loops, fns
 
     # the single launches whose kernels share the batched ones' code
     rng = np.random.default_rng(seed)
@@ -293,15 +313,31 @@ def batched_in_turns(old_pkg, seed: int) -> None:
         emit("single_post", rows=m_pad, nb=nb, below0=below0, mvalid=mvalid,
              equal=same, **in_pairs(fns["old"], fns["new"], event_ms))
         del xw, msm, wm, cmb
+    for h, nb in ((576, 512), (1088, 1024)):
+        al0 = torch.cat([packed(rng, h, nb), packed(rng, h, nb) * 0], dim=1)
+        fns = {t: (lambda t=t: mods[t][2].panel_loop_hopper(
+            al0, 0, 0, h, nb, True)) for t in mods}
+        same = same_all(fns["old"](), fns["new"]())
+        emit("single_loop", h=h, nb=nb, equal=same,
+             **in_pairs(fns["old"], fns["new"], event_ms))
+        del al0
 
     # end to end
     Bn, nn = NIST
     isd = stack(seed + 10, 1024, 768, 768)
     nist = stack(seed + 1, Bn, nn, nn)
+    ref = new_pkg.echelonize_batched(data, n, full=False)[0]
+    one16, one32 = (packed(rng, k, k)[None] for k in (16384, 32768))
     for label, name, args, pairs in (
             ("ple_batched 256 x 768x3488", "ple_batched", (data, n), 10),
             ("invert_batched 1024 x 768^2", "invert_batched", (isd,), 10),
-            ("rank_batched 2^20 x 32^2", "rank_batched", (nist, nn), 10)):
+            ("rank_batched 2^20 x 32^2", "rank_batched", (nist, nn), 10),
+            ("top_echelonize_batched 256 x 768x3488 in REF",
+             "top_echelonize_batched", (ref, n), 10),
+            ("batched_one 16384^2", "block_factor_batched",
+             (one16, 16384, True), 10),
+            ("batched_one 32768^2", "block_factor_batched",
+             (one32, 32768, True), 10)):
         fn_o, fn_n = getattr(old_pkg, name), getattr(new_pkg, name)
         same = same_all(fn_o(*args), fn_n(*args))
         emit("batched_entry", entry=label, equal=same,
@@ -317,8 +353,9 @@ def main() -> None:
     ap.add_argument("--solver", action="store_true",
                     help="the single-matrix solver entry points only")
     ap.add_argument("--batched", action="store_true",
-                    help="the batched launches 4b / 6b, the single launches "
-                         "that share their code, three batched entry points")
+                    help="the batched launches 4b / 6b / 5b, the single "
+                         "launches that share their code, the batched entry "
+                         "points")
     ap.add_argument("--seed", type=int, default=17)
     args = ap.parse_args()
     if not torch.cuda.is_available():

@@ -21,9 +21,23 @@ Cases:
   mceliece348864's parity-check shape, ``chip_smoke.py``'s batch);
 - ``post_batched_nothing_in_range``: ``panel_post_hopper_batched`` on that
   sweep's second panel, where no element has a row below its window;
+- ``loop_batched_first_panel``, ``loop_batched_third_panel``: one call of
+  ``panel_loop_hopper_batched`` (the pivot loop, 5b) on that sweep's first
+  panel (256 windows of 576 rows, nb = 512) and on its third, where every
+  element's rank has reached m and no row is in range;
+- ``loop_batched_top_sw42``: 5b on the first panel of ``top_echelonize``'s
+  sweep of the same batch brought to REF (a search window of 42 rows);
+- ``loop_batched_isd_first_panel``: 5b on the first panel of
+  ``solve_left_batched``'s sweep of 1024 random 768 x 768 matrices (one
+  Prange guess an element, L preserved);
+- ``loop_batched_nist``: 5b on the one panel of 2^20 random 32 x 32
+  matrices (h = nb = 32);
 - ``rank_batched_nist``: ``rank_batched`` of 2^20 random 32 x 32 matrices
   (NIST SP 800-22's binary matrix rank test);
 - ``ple_batched_mceliece``: ``ple_batched`` of the 256 McEliece matrices.
+
+The first line printed names the card and gives ``ptxas``'s registers,
+spills and shared memory for each kernel of ``gf2_panel_hopper.cu``.
 
 Needs the card and ``nvcc``:
 
@@ -44,6 +58,7 @@ from ..models import batched as batched_mod
 
 MCELIECE = (256, 768, 3488)
 NIST = (1 << 20, 32)
+ISD = (1024, 768)               # Prange: the information set H_I, n - k = 768
 # call of each wrapper that belongs to panel t: one pivot loop and one post
 # a panel; two Schur calls a panel (the U rows, then the trailing update)
 _CALLS_A_PANEL = {"panel_loop_hopper_batched": (1, 0),
@@ -205,9 +220,54 @@ def split(fn, runs: int, wrapper: bool) -> dict:
     return out
 
 
+def loop_operands(data: torch.Tensor, seed: int) -> dict:
+    """5b's operands beyond the McEliece first panel: that sweep's third
+    panel (nothing in range), top_echelonize's first panel (search window
+    42), the first panel of solve_left_batched's sweep of 1024 768^2
+    matrices, and the one panel of 2^20 NIST 32^2 matrices."""
+    from .. import echelonize_batched
+    from ..utils.graycode import opt_k
+    _, m, n = MCELIECE
+    only = ("panel_loop_hopper_batched",)
+    pick = (lambda got: got["panel_loop_hopper_batched"])
+    ref = echelonize_batched(data, n, full=False)[0]
+    sw = 6 * min(opt_k(m, n), 7)
+    out = {"third_panel": pick(capture_panel(data, n, False, panel=2,
+                                             need=only)),
+           f"top_sw{sw}": pick(capture_panel(ref, n, False, need=only,
+                                             search_window=sw))}
+    del ref
+    isd = stack(seed + 10, ISD[0], ISD[1], ISD[1])
+    out["isd_first_panel"] = pick(capture_panel(isd, ISD[1], True, need=only))
+    del isd
+    Bn, nn = NIST
+    nist = stack(seed + 1, Bn, nn, nn)
+    out["nist"] = pick(capture_panel(nist, nn, False, need=only))
+    return out
+
+
+def loop_cases(data: torch.Tensor, seed: int):
+    from ..ops import hopper_panel
+    for label, ops in loop_operands(data, seed).items():
+        yield (f"loop_batched_{label}",
+               lambda ops=ops: hopper_panel.panel_loop_hopper_batched(*ops),
+               11, True)
+
+
+def ptxas_usage() -> dict:
+    """Registers, spills and shared memory of each kernel of the pivot
+    loop's source, as ``ptxas -v`` prints them when the source is built
+    (empty if it was built already)."""
+    from ..ops import _build
+    log = _build.build(["gf2_panel_hopper"]).get("gf2_panel_hopper", "")
+    keep = ("entry function", "spill", "Used")
+    return {"gf2_panel_hopper": [ln.strip() for ln in log.splitlines()
+                                 if any(k in ln for k in keep)]}
+
+
 def cases(seed: int):
     """(name, function, runs, wrapper call or not)."""
-    from ..ops import hopper_post, hopper_schur
+    from ..ops import hopper_panel, hopper_post, hopper_schur
     B, m, n = MCELIECE
     data = stack(seed, B, m, n)
     first = capture_panel(data, n, False)
@@ -218,11 +278,16 @@ def cases(seed: int):
     ops = first["panel_post_hopper_batched"]
     yield ("post_batched_first_panel",
            lambda: hopper_post.panel_post_hopper_batched(*ops), 11, True)
-    del first, c, lp, up, ops
+    loop = first["panel_loop_hopper_batched"]
+    yield ("loop_batched_first_panel",
+           lambda: hopper_panel.panel_loop_hopper_batched(*loop), 11, True)
+    del first, c, lp, up, ops, loop
     second = capture_panel(data, n, False, panel=1)["panel_post_hopper_batched"]
     yield ("post_batched_nothing_in_range",
            lambda: hopper_post.panel_post_hopper_batched(*second), 11, True)
     del second
+    for name, fn, runs, wrapper in loop_cases(data, seed):
+        yield name, fn, runs, wrapper
     from .. import ple_batched, rank_batched
     yield "ple_batched_mceliece", lambda: ple_batched(data, n), 3, False
     del data
@@ -241,7 +306,8 @@ def main() -> None:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True).stdout.strip()
-    print(json.dumps({"card": card, "torch": torch.__version__}), flush=True)
+    print(json.dumps({"card": card, "torch": torch.__version__,
+                      "ptxas": ptxas_usage()}), flush=True)
     for name, fn, runs, wrapper in cases(args.seed):
         print(json.dumps({"case": name, **split(fn, runs, wrapper)}),
               flush=True)

@@ -1,11 +1,14 @@
-"""The batched trailing update (4b) and elimination (6b) with a part left
-out, to see what sets their pace.
+"""The batched trailing update (4b), elimination (6b) and pivot loop (5b)
+with a part left out, to see what sets their pace.
 
 Each variant is the kernel source with one piece of text replaced (the MMA
 instructions by an XOR that keeps their operands live; C's loads and stores
 of the trailing update by nothing; the elimination's search for an item's
 element by arithmetic that holds at the McEliece first panel, two tiles an
-element).  The results of a variant are wrong; only its time means
+element; the pivot loop's group ends left out, which leaves its chain of
+steps alone; or its chain's search replaced by taking the rank's own row as
+the pivot at every step, no ballot, which leaves the group-end pass with 32
+pivots a group behind a chain of shuffles only).  The results of a variant are wrong; only its time means
 anything.  For each tree (this one, and the one under ``--parent DIR`` if
 given) and each variant whose text that tree's source has, the variant is
 built with ``nvcc`` into the tree's build directory, put in place of the
@@ -16,6 +19,7 @@ trace (``split_batched.trace``), so that the host's time is left out.
 Needs the card and ``nvcc``:
 
     python -m m4ri_tpu_torch.benches.variants_batched [--parent DIR]
+        [--kernel gf2_panel_hopper]
 """
 
 from __future__ import annotations
@@ -65,6 +69,20 @@ VARIANTS = {
          "        acc[0][nt][0] ^= fb.x ^ fa[0][0];\n"
          "        acc[1][nt][1] ^= fb.y ^ fa[1][1];")],
 }
+# the pivot loop: the batched launch's group ends, and the fast path's search
+_ROW_WORK = "a.search_window = search_window; a.row_work = 1;"
+_FOUND = "const bool found = (b0 | b1) != 0u;"
+_SRC = """const bool low = b0 != 0u;
+            const int src = __ffs(low ? b0 : b1) - 1;"""
+VARIANTS.update({
+    ("gf2_panel_hopper", "as built"): [],
+    ("gf2_panel_hopper", "chain alone (no group ends)"): [
+        ("gf2_panel_hopper.cu", _ROW_WORK, _ROW_WORK.replace("= 1;", "= 0;"))],
+    ("gf2_panel_hopper", "pass behind a chain without search"): [
+        ("gf2_panel_hopper.cu", _FOUND, "const bool found = true;"),
+        ("gf2_panel_hopper.cu", _SRC,
+         "const bool low = true;\n            const int src = K;")],
+})
 VARIANTS[("gf2_schur_hopper", "no C and no MMAs")] = (
     VARIANTS[("gf2_schur_hopper", "no C loads or stores")]
     + VARIANTS[("gf2_schur_hopper", "no MMAs")])
@@ -95,7 +113,9 @@ def install(pkg, kernel: str, lib: str):
     """The tree's wrapper of ``kernel``, now calling ``lib``."""
     build = sub(pkg, "ops._build")
     build._LIBS[kernel] = ctypes.CDLL(lib)
-    mod = sub(pkg, "ops.hopper_schur" if "schur" in kernel else "ops.hopper_post")
+    mod = sub(pkg, {"gf2_schur_hopper": "ops.hopper_schur",
+                    "gf2_post_hopper": "ops.hopper_post",
+                    "gf2_panel_hopper": "ops.hopper_panel"}[kernel])
     for name in ("_fns", "_capacity", "_scratch_words"):
         if hasattr(mod, name):
             getattr(mod, name).cache_clear()
@@ -105,6 +125,8 @@ def install(pkg, kernel: str, lib: str):
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", help="a checkout of another commit")
+    ap.add_argument("--kernel", choices=sorted({k for k, _ in VARIANTS}),
+                    help="this source's variants only")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("variants_batched: needs the card")
@@ -120,8 +142,11 @@ def main() -> None:
     ops = capture_panel(stack(900, B, m, n), n, False)
     c, lp, up, r0s, c0w = ops["gf2_schur_update_batched_hopper"]
     post_ops = ops["panel_post_hopper_batched"]
+    loop_ops = ops["panel_loop_hopper_batched"]
     for tree, pkg in trees.items():
         for (kernel, label), edits in VARIANTS.items():
+            if args.kernel and kernel != args.kernel:
+                continue
             lib = build_variant(None if pkg is this else pkg, kernel, label,
                                 edits)
             if lib is None:
@@ -133,8 +158,10 @@ def main() -> None:
                 cc = c.clone()
                 fn = (lambda: mod.gf2_schur_update_batched_hopper(
                     cc, lp, up, r0s, c0w))
-            else:
+            elif "post" in kernel:
                 fn = (lambda: mod.panel_post_hopper_batched(*post_ops))
+            else:
+                fn = (lambda: mod.panel_loop_hopper_batched(*loop_ops))
             for _ in range(3):
                 fn()
             print(json.dumps({"tree": tree, "kernel": kernel, "variant": label,

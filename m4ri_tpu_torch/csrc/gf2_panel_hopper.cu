@@ -53,15 +53,35 @@
 //           does not fit beside the tables (above about 48,000 rows).
 // Panel rows in shared memory are one word apart from a multiple of 32 so
 // that threads taking one row each fall on distinct banks.
-// Batched (mode SHARED only): one block a window, the batch on grid x.  Block
-// b takes window b of a contiguous [B, h, 2*nbw] stack, its rank r0[b] and its
-// base base[b] on the card, and writes output b of each stack; a launch of one
-// block is the single-window call.
+// Batched: window b of a contiguous [B, h, 2*nbw] stack, its rank r0[b] and
+// its base base[b] on the card, output b of each stack; the batch on grid x.
+// Which kernel takes the batch follows the window's shape:
+//   WARP    a warp a window, eight windows a block (h <= 64, nbw <= 2: NIST's
+//           32 x 32 matrices, the sweep's narrow windows).  The window lives
+//           in the warp's registers; rows never move: each carries its
+//           position, a step is one min-reduction over the rows in range, nbw
+//           shuffles of the pivot's panel words, the exchange of two
+//           positions and a masked XOR; every row is stored at its position
+//           at the end.  No barrier, no shared memory, no group end.
+//   BLOCK   mode SHARED, a block a window.  Where two or more windows fit an
+//           SM and the batch outnumbers the SMs, an instance of the kernel
+//           whose launch bounds keep two (576 threads) or three (256) windows
+//           resident, their chains and passes overlapping, whichever runs
+//           the batch in fewer waves (the McEliece first panel's 256 windows
+//           of 576 rows: one wave, 576 threads; 1024 ISD windows: three
+//           waves, 256); else the single call's configuration, one window
+//           an SM (a batch of one).
+// In the batched launch's mode SHARED a window with no row in range (r_in >=
+// m, or the rank past the window: min(h, m - base) <= r_in - base) takes no
+// step: its block writes what the loop leaves there (AL = al0, the
+// identity, every step's swap (rs, rs), p[0] = rs, q[0] = nb - 1) from
+// device memory to device memory, decided on the card from r0 and base.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <initializer_list>
 #include <limits.h>
 #include <stdint.h>
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -201,8 +221,27 @@ __device__ void delayed_pass(uint32_t* pan, long ldp, uint32_t* lhp, long ldl,
   }
 }
 
-template <bool kGrid, bool kTall>
-__global__ void __launch_bounds__(MAX_THREADS, 1)
+// The outputs of a window in which no step finds a row in range: the copy
+// of al0 (8 bytes an item: 2 * nbw words a row), the identity, every step's
+// swap (rs, rs) and slot 0 written by every step, the last being nb - 1.
+__device__ void idle_window(const PanelArgs& a, int r_in) {
+  const int tid = threadIdx.x, T = blockDim.x, h = a.h, nb = a.nbw * 32;
+  const long items = (long)h * a.nbw;
+  const uint2* src = reinterpret_cast<const uint2*>(a.al0);
+  uint2* dst = reinterpret_cast<uint2*>(a.al);
+  for (long i = tid; i < items; i += T) dst[i] = __ldcs(src + i);
+  for (int i = tid; i < h; i += T) a.rowperm[i] = i;
+  const int rs = max(0, min(r_in - a.base, h - 1));
+  for (int i = tid; i < 2 * nb; i += T) a.touched[i] = rs;
+  for (int i = tid; i < nb; i += T) {
+    a.p_out[i] = i == 0 ? rs : 0;
+    a.q_out[i] = i == 0 ? nb - 1 : 0;
+  }
+  if (tid == 0) *a.r_out = r_in;
+}
+
+template <bool kGrid, bool kTall, int kMaxT = MAX_THREADS, int kMinBlocks = 1>
+__global__ void __launch_bounds__(kMaxT, kMinBlocks)
 panel_kernel(PanelArgs a) {
   extern __shared__ uint32_t smem[];
   __shared__ GroupMeta mt;
@@ -223,7 +262,14 @@ panel_kernel(PanelArgs a) {
     a.p_out += e * nb;
     a.q_out += e * nb;
     if (a.r0) a.r0 += e;
-    if (a.base_p) a.base = a.base_p[e];
+    if (a.base_p) {   // batched: a window with no row in range takes no step
+      a.base = a.base_p[e];
+      const int r_in = max(*a.r0, a.base);
+      if (min(h, a.m - a.base) <= r_in - a.base) {
+        idle_window(a, r_in);
+        return;
+      }
+    }
   }
 
   // shared memory: t4[8 * 16, nbw] (first: read 8 bytes at a time) |
@@ -542,6 +588,156 @@ panel_kernel(PanelArgs a) {
   if (chain_block && tid == 0) *a.r_out = r;
 }
 
+// ---- small windows: a warp a window ----------------------------------------
+constexpr int WARP_WINDOWS = 8;    // windows (warps) a block
+constexpr int WARP_MAX_H = 64;     // two rows a lane
+constexpr int WARP_MAX_NBW = 2;    // 2 rows x 2 * nbw words: 8 registers
+
+template <int NBW>
+__device__ __forceinline__ void load_row(const uint32_t* p,
+                                         uint32_t (&v)[2 * NBW]) {
+  if constexpr (NBW == 1) {
+    const uint2 x = __ldcs(reinterpret_cast<const uint2*>(p));
+    v[0] = x.x; v[1] = x.y;
+  } else {
+    const uint4 x = __ldcs(reinterpret_cast<const uint4*>(p));
+    v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+  }
+}
+
+template <int NBW>
+__device__ __forceinline__ void store_row(uint32_t* p,
+                                          const uint32_t (&v)[2 * NBW]) {
+  if constexpr (NBW == 1)
+    __stcs(reinterpret_cast<uint2*>(p), make_uint2(v[0], v[1]));
+  else
+    __stcs(reinterpret_cast<uint4*>(p), make_uint4(v[0], v[1], v[2], v[3]));
+}
+
+// Window e = blockIdx.x * WARP_WINDOWS + warp of a batch; lane l holds rows l
+// and l + 32 (R = 2; R = 1 when h <= 32) with all 2 * NBW words of each, and
+// the position each has reached.  h <= 64 means every row is in the warp: no
+// slow path, no deferred update.  The steps are unrolled and branch-free but
+// for "no pivot": the column's bit, its masks and the step's lane are
+// immediates (kPres: L preserved in place; kSW: a search window is given),
+// the multiplier bit of the rank's slot is shifted along a step at a time.
+// A step keeps only its pivot position (lane sh) and whether it found one (a
+// bit of fmask): its rank, its swap and the slot it writes follow at the
+// group's end from a prefix count, as in the block kernel's fast path.
+// Needs al0 and al 8 * NBW-byte aligned.
+template <int NBW, int R, bool kSW, bool kPres>
+__global__ void __launch_bounds__(WARP_WINDOWS * 32)
+panel_warp_kernel(PanelArgs a, int batch) {
+  constexpr int W2 = 2 * NBW, NB = GROUP * NBW;
+  using Bits = typename std::conditional<NBW == 1, uint32_t, uint64_t>::type;
+  const int lane = threadIdx.x & 31;
+  const long e = (long)blockIdx.x * WARP_WINDOWS + (threadIdx.x >> 5);
+  if (e >= batch) return;            // the tail of the last block
+  const int h = a.h;
+  const long off = e * h * W2;
+  uint32_t v[R][W2];
+  int pos[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int row = lane + 32 * i;
+    pos[i] = row < h ? row : WARP_MAX_H;   // past h: never in range or moved
+#pragma unroll
+    for (int w = 0; w < W2; ++w) v[i][w] = 0u;
+    if (row < h) load_row<NBW>(a.al0 + off + (long)row * W2, v[i]);
+  }
+  const int base = a.base_p[e];
+  const int r_in = max(a.r0[e], base);
+  const int hi_all = min(h, a.m - base);
+  int* p_out = a.p_out + e * NB;
+  int* q_out = a.q_out + e * NB;
+  int r = r_in;
+  Bits lb = 1u;                      // the multiplier bit of slot r - r_in
+  uint32_t fmask = 0u;               // the group's steps that found a pivot
+#pragma unroll
+  for (int g = 0; g < NBW; ++g) {
+    const int r_g = r;               // the rank at the group's first step
+    fmask = 0u;
+    int t_ps = 0;                    // lane sh: step sh's pivot position
+#pragma unroll
+    for (int sh = 0; sh < GROUP; ++sh) {
+      const int rl = r - base;       // >= 0: r_in >= base
+      int hi = hi_all;
+      if (kSW) hi = min(hi, rl + a.search_window);
+      // the first row in range with a 1: the least position, and who holds it
+      const unsigned span = max(hi - rl, 0);
+      unsigned key = UINT_MAX;
+      bool bit[R];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        bit[i] = (v[i][g] >> sh) & 1u;
+        if (bit[i] && (unsigned)(pos[i] - rl) < span)
+          key = min(key, (unsigned)((pos[i] << 6) | (i << 5) | lane));
+      }
+      key = __reduce_min_sync(FULL, key);
+      const int rs = min(rl, h - 1);
+      const int ps = key != UINT_MAX ? (int)(key >> 6) : rs;
+      if (lane == sh) t_ps = ps;
+      if (key == UINT_MAX) continue;
+      fmask |= 1u << sh;
+      const int src = key & 31;
+      const bool high = R > 1 && ((key >> 5) & 1u);
+      uint32_t pw[NBW];
+#pragma unroll
+      for (int w = 0; w < NBW; ++w)
+        pw[w] = __shfl_sync(FULL, high ? v[R - 1][w] : v[0][w], src);
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        pos[i] = pos[i] == rs ? ps : pos[i] == ps ? rs : pos[i];
+        // the rows below the pivot (now at rl) with a 1
+        const uint32_t el = (bit[i] && pos[i] > rl) ? FULL : 0u;
+#pragma unroll
+        for (int w = g; w < NBW; ++w) {   // columns <= j keep L in place
+          const uint32_t keep = !kPres || w > g ? FULL
+                              : sh == 31 ? 0u : FULL << (sh + 1);
+          v[i][w] ^= pw[w] & keep & el;
+        }
+        if (!kPres) {
+#pragma unroll
+          for (int w = 0; w < g; ++w) v[i][w] ^= pw[w] & el;
+        }
+        v[i][NBW] ^= (uint32_t)lb & el;
+        if (NBW > 1) v[i][W2 - 1] ^= (uint32_t)((uint64_t)lb >> 32) & el;
+      }
+      lb <<= 1;
+      ++r;
+    }
+    // lane sh's step: its rank from the pivots before it, its swap; it
+    // writes slot (rank - r_in), which a step that finds nothing shares with
+    // the next step, so the writer that stays is the one that found a pivot
+    // there or the group's last step (a later group's steps follow)
+    const int rb = r_g + __popc(fmask & ((1u << lane) - 1u));
+    int* tw = a.touched + e * 2 * NB + 2 * (g * GROUP + lane);
+    tw[0] = max(0, min(rb - base, h - 1));
+    tw[1] = t_ps;
+    if (g) __syncwarp();             // the previous group's slots first
+    if (((fmask >> lane) & 1u) || lane == GROUP - 1) {
+      p_out[rb - r_in] = t_ps;
+      q_out[rb - r_in] = g * GROUP + lane;
+    }
+  }
+  const int last = r - r_in - (int)(fmask >> 31);   // the last slot written
+#pragma unroll
+  for (int k = 0; k < NBW; ++k)
+    if (GROUP * k + lane > last) {
+      p_out[GROUP * k + lane] = 0;
+      q_out[GROUP * k + lane] = 0;
+    }
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int row = lane + 32 * i;
+    if (row < h) {
+      store_row<NBW>(a.al + off + (long)pos[i] * W2, v[i]);
+      a.rowperm[e * h + pos[i]] = row;
+    }
+  }
+  if (lane == 0) a.r_out[e] = r;
+}
+
 // The floor of a chain of dependent block-wide steps at a block size: each
 // step is what no pivot loop can do without: a shared-memory round trip
 // through another thread's word, a warp ballot, one barrier.
@@ -614,18 +810,90 @@ inline int panel_mode(int requested, int h, int nbw, int threads) {
 }
 
 // Once a card: the most shared memory a block of each mode may ask for.
+// The batched launch's instances that keep several windows an SM: block
+// size and the least blocks an SM it is compiled for.
+using PanelFn = void (*)(PanelArgs);
+using PanelWarpFn = void (*)(PanelArgs, int);
+
+// The warp kernel's instance for a search window given or not, L preserved
+// or not.
+template <int N, int R>
+PanelWarpFn warp_fn(bool sw, bool pres) {
+  return sw ? (pres ? panel_warp_kernel<N, R, true, true>
+                    : panel_warp_kernel<N, R, true, false>)
+            : (pres ? panel_warp_kernel<N, R, false, true>
+                    : panel_warp_kernel<N, R, false, false>);
+}
+struct Resident { int threads; PanelFn fn; };
+static const Resident RESIDENT[] = {
+    {256, panel_kernel<false, false, 256, 3>},
+    {576, panel_kernel<false, false, 576, 2>}};
+
 inline cudaError_t allow_kernels(Card* cd) {
   if (!cd) return cudaErrorInvalidDevice;
   if (!cd->allowed) {
     for (auto kernel : {panel_kernel<false, false>, panel_kernel<true, false>,
-                        panel_kernel<true, true>}) {
+                        panel_kernel<true, true>, RESIDENT[0].fn,
+                        RESIDENT[1].fn}) {
       cudaError_t err = cudaFuncSetAttribute(
           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, cd->cap - 2048);
+      if (err != cudaSuccess) return err;
+    }
+    for (const Resident& rs : RESIDENT) {   // shared memory before L1
+      cudaError_t err = cudaFuncSetAttribute(
+          rs.fn, cudaFuncAttributePreferredSharedMemoryCarveout,
+          cudaSharedmemCarveoutMaxShared);
       if (err != cudaSuccess) return err;
     }
     cd->allowed = true;
   }
   return cudaSuccess;
+}
+
+// The batched launch: which kernel, its block size and dynamic shared
+// memory.  kind 1: a warp a window; 2: a block a window, several an SM; 3: a
+// block a window, one an SM (the single call's configuration); -1: nothing
+// fits.  Kind 2 takes, of the instances that keep two or more windows an SM,
+// the one that runs the batch in the fewest waves, the larger block on a
+// tie; it is taken only where the batch outnumbers the SMs.
+struct BatchedPlan { int kind, threads, grid; size_t smem; PanelFn fn; };
+
+inline BatchedPlan batched_plan(int h, int nbw, int batch) {
+  BatchedPlan pl{-1, 0, 0, 0, nullptr};
+  if (h <= WARP_MAX_H && nbw <= WARP_MAX_NBW) {
+    pl.kind = 1;
+    pl.threads = WARP_WINDOWS * 32;
+    pl.grid = (batch + WARP_WINDOWS - 1) / WARP_WINDOWS;
+    return pl;
+  }
+  const int one = panel_threads(h);
+  if (panel_mode(kShared, h, nbw, one) != kShared) return pl;
+  Card* cd = card();
+  if (!cd || allow_kernels(cd) != cudaSuccess) return pl;
+  pl.smem = panel_smem(kShared, h, nbw, one);
+  pl.grid = batch;
+  pl.kind = 3;
+  pl.threads = one;
+  pl.fn = panel_kernel<false, false>;
+  if (batch <= cd->sms) return pl;
+  long best_waves = LONG_MAX;
+  for (const Resident& rs : RESIDENT) {   // from the smallest block up
+    const int t = one < rs.threads ? one : rs.threads;
+    int fit = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit, rs.fn, t,
+                                                      pl.smem) != cudaSuccess)
+      return BatchedPlan{-1, 0, 0, 0, nullptr};
+    if (fit < 2) continue;
+    const long per_wave = (long)fit * cd->sms;
+    const long waves = (batch + per_wave - 1) / per_wave;
+    if (waves <= best_waves) {
+      best_waves = waves;
+      pl.kind = 2;
+      pl.threads = t;
+      pl.fn = rs.fn;
+    }
+  }
+  return pl;
 }
 
 }  // namespace gf2
@@ -702,22 +970,24 @@ extern "C" int gf2_panel_loop_hopper_launch(
   return static_cast<int>(cudaGetLastError());
 }
 
-// The batched call, mode SHARED only: batch windows, each [h, 2*nbw] words,
-// stacked contiguously in al0; outputs stacked likewise (al, rowperm [B, h],
-// r_out [B], touched [B, 2*nb], p_out, q_out [B, nb]); r0, base: B ints on
-// the card each (r0 >= base, else taken as base).  A window that does not fit
-// mode SHARED is refused (cudaErrorInvalidConfiguration).
+// The batched call: batch windows, each [h, 2*nbw] words, stacked
+// contiguously in al0 (16-byte aligned); outputs stacked likewise (al,
+// rowperm [B, h], r_out [B], touched [B, 2*nb], p_out, q_out [B, nb]); r0,
+// base: B ints on the card each (r0 >= base, else taken as base).  A window
+// that fits neither a warp nor mode SHARED is refused
+// (cudaErrorInvalidConfiguration).  *kind receives the kind of kernel
+// launched (batched_plan).
 extern "C" int gf2_panel_loop_hopper_batched_launch(
     const void* al0, void* al, void* rowperm, void* r_out, void* touched,
     void* p_out, void* q_out, const void* r0, const void* base, int batch,
-    int m, int h, int nbw, int preserve_l, int search_window, void* stream) {
+    int m, int h, int nbw, int preserve_l, int search_window, int* kind,
+    void* stream) {
   using namespace gf2;
   if (nbw < 1 || nbw > MAX_NBW || h < 1 || batch < 1 || !r0 || !base)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = panel_threads(h);
-  if (panel_mode(kShared, h, nbw, threads) != kShared)
-    return static_cast<int>(cudaErrorInvalidConfiguration);
-  if (cudaError_t err = allow_kernels(card())) return static_cast<int>(err);
+  const BatchedPlan pl = batched_plan(h, nbw, batch);
+  if (kind) *kind = pl.kind;
+  if (pl.kind < 0) return static_cast<int>(cudaErrorInvalidConfiguration);
   PanelArgs a{};
   a.al0 = static_cast<const uint32_t*>(al0);
   a.al = static_cast<uint32_t*>(al);
@@ -730,9 +1000,22 @@ extern "C" int gf2_panel_loop_hopper_batched_launch(
   a.base_p = static_cast<const int*>(base);
   a.m = m; a.h = h; a.nbw = nbw; a.preserve_l = preserve_l;
   a.search_window = search_window; a.row_work = 1;
-  panel_kernel<false, false><<<batch, threads,
-                               panel_smem(kShared, h, nbw, threads),
-                               static_cast<cudaStream_t>(stream)>>>(a);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (pl.kind == 1) {
+    const bool sw = search_window > 0, pres = preserve_l != 0;
+    const PanelWarpFn fn =
+        nbw == 1 ? (h <= 32 ? warp_fn<1, 1>(sw, pres)
+                            : warp_fn<1, 2>(sw, pres))
+                 : (h <= 32 ? warp_fn<2, 1>(sw, pres)
+                            : warp_fn<2, 2>(sw, pres));
+    fn<<<pl.grid, pl.threads, 0, st>>>(a, batch);
+  } else {
+    void* args[] = {&a};
+    cudaError_t err = cudaLaunchKernel(reinterpret_cast<const void*>(pl.fn),
+                                       dim3(pl.grid), dim3(pl.threads), args,
+                                       pl.smem, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

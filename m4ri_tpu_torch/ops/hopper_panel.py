@@ -28,11 +28,17 @@ value is read back to the host); it is also the engine on the CPU.
 
 ``panel_loop_hopper_batched`` runs a batch of windows ``al0 [B, h, 2*nb/32]``
 at once, each with its own rank ``r0[b]`` and base ``base[b]`` (int32 tensors
-on the card): mode "shared" only, one block a window, the batch the grid;
-a window that does not fit mode shared is refused.  It returns the outputs
-of the single call stacked along a leading batch axis.
+on the card), and returns the outputs of the single call stacked along a
+leading batch axis.  The kernel follows the window's shape: a warp a window
+(``panel_warp_kernel``) where h <= 64 and nb <= 64 (NIST's 32 x 32
+matrices), else mode "shared", a block a window (``panel_kernel``), several
+windows an SM where they fit and the batch outnumbers the SMs; a window that
+fits neither is refused.  In mode "shared" a window with no row in range
+writes the loop's outputs without a step (``panel_loop_idle_plain``).
 ``panel_loop_batched_plain`` is its plain version: the nb column steps, each
-a few tensor operations for the whole batch.
+a few tensor operations for the whole batch; ``panel_loop_warp_plain`` is the
+warp kernel's schedule in numpy and ``panel_warp_schedule_plain`` its walk of
+the batch, for the tests.
 """
 
 from __future__ import annotations
@@ -47,11 +53,19 @@ from ..utils.config import WORD_BITS
 
 __all__ = ["panel_loop_hopper", "panel_loop_plain",
            "panel_loop_grouped_plain", "panel_loop_hopper_batched",
-           "panel_loop_batched_plain", "MODES"]
+           "panel_loop_batched_plain", "panel_loop_warp_plain",
+           "panel_loop_idle_plain", "panel_warp_schedule_plain", "MODES"]
 
 # one block; a cooperative grid; the grid with the word column in scratch
 MODES = {1: "shared", 2: "grid", 3: "tall"}
 _MAX_NBW = 64                                     # MAX_NBW of the kernel
+# the warp kernel's windows: h <= 64 rows (two a lane), nb <= 64 (2 * 2 words
+# a row in registers: the widest the batched sweep gives a window of 64 rows,
+# whose nb <= h), WARP_WINDOWS windows a block (csrc/gf2_panel_hopper.cu)
+WARP_MAX_H, WARP_MAX_NBW, WARP_WINDOWS = 64, 2, 8
+# the kinds of kernel the batched launch takes (batched_plan in the source)
+BATCHED_KINDS = {1: "panel_warp_kernel", 2: "panel_kernel (several an SM)",
+                 3: "panel_kernel (one an SM)"}
 
 
 @functools.lru_cache(maxsize=32)
@@ -308,6 +322,131 @@ def panel_loop_grouped_plain(al0: torch.Tensor, r0, base: int, m: int,
             torch.from_numpy(q_pan).to(dev))
 
 
+def panel_loop_idle_plain(al0: torch.Tensor, r0, base: int, m: int, nb: int):
+    """The kernel's exit for a window with no row in range, in plain
+    PyTorch: None if some step could find a row (a row of the window lies at
+    a position in [r_in, m), r_in = max(r0, base)), else the outputs the loop
+    leaves: AL = al0, the identity, r = r_in, every step's swap (rs, rs)
+    with rs = min(r_in - base, h - 1), and slot 0 written by every step, so
+    p[0] = rs, q[0] = nb - 1, the other slots 0.  A search window only
+    narrows the range from below r_in + 1, so it never opens one."""
+    _check(al0, nb)
+    h = al0.shape[0]
+    r_in = max(int(r0), base)
+    if min(h, m - base) > r_in - base:
+        return None
+    dev = al0.device
+    rs = min(r_in - base, h - 1)
+    p_pan = torch.zeros(nb, dtype=torch.int32, device=dev)
+    q_pan = torch.zeros(nb, dtype=torch.int32, device=dev)
+    p_pan[0], q_pan[0] = rs, nb - 1
+    return (al0.clone(), torch.arange(h, dtype=torch.int32, device=dev),
+            torch.tensor(r_in, dtype=torch.int32, device=dev),
+            torch.full((2 * nb,), rs, dtype=torch.int32, device=dev),
+            p_pan, q_pan)
+
+
+def panel_warp_schedule_plain(batch: int, windows: int = WARP_WINDOWS):
+    """The warp kernel's walk of a batch (numpy): [blocks, windows] window
+    indices, block x's warp w taking window x * windows + w, -1 where that
+    is past the batch (the tail of the last block)."""
+    blocks = -(-batch // windows)
+    e = np.arange(blocks * windows).reshape(blocks, windows)
+    return np.where(e < batch, e, -1)
+
+
+def panel_loop_warp_plain(al0: torch.Tensor, r0, base: int, m: int, nb: int,
+                          preserve_l: bool, search_window: int = 0):
+    """The same function in the warp kernel's schedule (numpy, for the
+    tests): lane l holds rows l and l + 32 with all their words and the
+    position each has reached (h <= 64, nb <= 64).  A step takes the least
+    key (position << 6 | holder) over the rows in range with a 1 (the
+    warp's min-reduction), the pivot's panel words from its holder (a
+    shuffle), exchanges the positions of the rank's slot and the pivot,
+    XORs the pivot's masked words and the slot's multiplier bit into the
+    rows below with a 1; every row lands at its position at the end.  A step
+    logs only its pivot position and whether it found one: at the group's
+    end each step's rank is the group's first rank plus the pivots found
+    before it, which gives its swap and its slot; the slot's writer that
+    stays is the step that found a pivot there or a group's last step, and
+    the slots past the last one written are 0."""
+    _check(al0, nb)
+    h, nbw = al0.shape[0], nb // WORD_BITS
+    if h > WARP_MAX_H or nbw > WARP_MAX_NBW:
+        raise ValueError(f"h={h}, nb={nb}: past the warp kernel's window")
+    dev = al0.device
+    src = al0.detach().cpu().contiguous().numpy().view(np.uint32)
+    R = 1 if h <= 32 else 2
+    lane = np.arange(32)
+    row = lane[None, :] + 32 * np.arange(R)[:, None]          # [R, 32]
+    v = np.zeros((R, 32, 2 * nbw), np.uint32)
+    v[row < h] = src[row[row < h]]
+    pos = np.where(row < h, row, WARP_MAX_H)
+    holder = (np.arange(R)[:, None] << 5) | lane[None, :]
+    r_in = r = max(int(r0), base)
+    hi_all = min(h, m - base)
+    touched = np.zeros(2 * nb, np.int32)
+    p_pan, q_pan = np.full(nb, -1, np.int32), np.full(nb, -1, np.int32)
+    t_ps = np.zeros(WORD_BITS, np.int32)                       # a lane a step
+    for j in range(nb):
+        g, sh = divmod(j, WORD_BITS)
+        if sh == 0:
+            r_g, fmask = r, 0
+        rl = r - base
+        hi = min(hi_all, rl + search_window) if search_window else hi_all
+        bit = ((v[:, :, g] >> np.uint32(sh)) & 1) == 1
+        cand = bit & (pos >= rl) & (pos < hi)
+        keys = np.where(cand, (pos << 6) | holder, np.iinfo(np.int64).max)
+        key = int(keys.min())                                  # the reduction
+        found = bool(cand.any())
+        rs = max(0, min(rl, h - 1))
+        ps = key >> 6 if found else rs
+        t_ps[sh] = ps
+        if found:
+            fmask |= 1 << sh
+            slot = r - r_in
+            _warp_step(v, pos, bit, key, rs, ps, rl, slot, g, sh, nbw,
+                       preserve_l)
+            r += 1
+        if sh == WORD_BITS - 1:        # the group's end: its log written out
+            for ln in range(WORD_BITS):
+                rb = r_g + bin(fmask & ((1 << ln) - 1)).count("1")
+                j2 = WORD_BITS * g + ln
+                touched[2 * j2:2 * j2 + 2] = max(0, min(rb - base, h - 1)), \
+                    t_ps[ln]
+                if (fmask >> ln) & 1 or ln == WORD_BITS - 1:
+                    p_pan[rb - r_in], q_pan[rb - r_in] = t_ps[ln], j2
+    last = r - r_in - (fmask >> 31)
+    assert (p_pan[:last + 1] >= 0).all()          # every slot up to it written
+    p_pan[last + 1:] = q_pan[last + 1:] = 0
+    AL = np.zeros_like(src)
+    rowperm = np.zeros(h, np.int32)
+    live = row < h
+    AL[pos[live]] = v[live]
+    rowperm[pos[live]] = row[live]
+    ints = dict(dtype=torch.int32, device=dev)
+    return (torch.from_numpy(AL.view(np.int32)).to(dev),
+            torch.from_numpy(rowperm).to(dev), torch.tensor(r, **ints),
+            torch.from_numpy(touched).to(dev), torch.from_numpy(p_pan).to(dev),
+            torch.from_numpy(q_pan).to(dev))
+
+
+def _warp_step(v, pos, bit, key, rs, ps, rl, slot, g, sh, nbw, preserve_l):
+    """One step of the warp kernel that found its pivot (numpy, in place):
+    the pivot's panel words from its holder, the exchange of two positions,
+    the masked XOR and the multiplier bit into the rows below with a 1."""
+    full = np.uint32(0xFFFFFFFF)
+    pw = v[(key >> 5) & 1, key & 31, :nbw].copy()             # the shuffle
+    pos[:] = np.where(pos == rs, ps, np.where(pos == ps, rs, pos))
+    keep = np.full(nbw, full)
+    if preserve_l:
+        keep[:g] = 0
+        keep[g] = 0 if sh == 31 else full << np.uint32(sh + 1)
+    elim = bit & (pos > rl)
+    v[elim, :nbw] ^= pw & keep
+    v[elim, nbw + slot // WORD_BITS] ^= np.uint32(1 << (slot % WORD_BITS))
+
+
 _VOID, _INT, _LONG = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
 
 
@@ -325,7 +464,7 @@ def _fns():
     floor.argtypes = [_INT, _INT, _VOID, _VOID]
     threads.argtypes = [_INT]
     batched = lib.gf2_panel_loop_hopper_batched_launch
-    batched.argtypes = [_VOID] * 9 + [_INT] * 6 + [_VOID]
+    batched.argtypes = [_VOID] * 9 + [_INT] * 6 + [_VOID] * 2
     launch.restype = mode.restype = floor.restype = threads.restype = _INT
     batched.restype = _INT
     scratch.restype = _LONG
@@ -420,12 +559,12 @@ def panel_loop_hopper_batched(al0: torch.Tensor, r0: torch.Tensor,
     """The pivot loop on a batch of fused windows; see the module text.
     ``r0`` and ``base``: int32 tensors ``[B]`` on al0's device (``r0 >=
     base`` is the contract; a value below is taken as the base).  CPU
-    tensors take the plain version; CUDA tensors launch the kernel (mode
-    shared) or raise."""
+    tensors take the plain version; CUDA tensors launch the kernel (a warp
+    a window, or mode shared) or raise."""
     if al0.dtype != torch.int32 or al0.dim() != 3:
         raise TypeError(f"al0: want a 3-D int32 tensor, got {al0.dtype} with "
                         f"{al0.dim()} dims")
-    B, h, w2 = al0.shape
+    B = al0.shape[0]
     _check_batch(al0, nb)
     for name, t in (("r0", r0), ("base", base)):
         if not isinstance(t, torch.Tensor) or tuple(t.shape) != (B,):
@@ -436,7 +575,10 @@ def panel_loop_hopper_batched(al0: torch.Tensor, r0: torch.Tensor,
         return panel_loop_batched_plain(al0, r0, base, m, nb, preserve_l,
                                         search_window)
     dev = al0.device
+    h, w2 = al0.shape[1:]
     al0 = al0.contiguous()
+    if al0.data_ptr() % 16:            # the kernels load 8 or 16 bytes a row
+        al0 = al0.clone()
     r0, base = (t.to(torch.int32).contiguous() for t in (r0, base))
     sizes = (B * h * w2, B * h, B, B * 2 * nb, B * nb, B * nb)
     offs = [0]
@@ -450,17 +592,25 @@ def panel_loop_hopper_batched(al0: torch.Tensor, r0: torch.Tensor,
     p_pan = buf.as_strided((B, nb), (nb, 1), offs[4])
     q_pan = buf.as_strided((B, nb), (nb, 1), offs[5])
     ptr = [buf.data_ptr() + 4 * o for o in offs]
+    kind_out = ctypes.c_int(0)
     with torch.cuda.device(dev):
         err = _fns()[5](al0.data_ptr(), ptr[0], ptr[1], ptr[2], ptr[3],
                         ptr[4], ptr[5], r0.data_ptr(), base.data_ptr(), B, m,
                         h, nb // WORD_BITS, int(bool(preserve_l)),
-                        search_window, torch.cuda.current_stream().cuda_stream)
-    panel_loop_hopper_batched.launches += 1
+                        search_window, ctypes.addressof(kind_out),
+                        torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"panel_loop_hopper_batched: CUDA error {err} at "
-                           f"launch (B={B}, h={h}, nb={nb}; mode shared only)")
+                           f"launch (B={B}, h={h}, nb={nb}: neither a warp "
+                           "nor mode shared takes the window)")
+    panel_loop_hopper_batched.launches += 1
+    kind = BATCHED_KINDS[kind_out.value]
+    by = panel_loop_hopper_batched.by_kernel
+    by[kind] = by.get(kind, 0) + 1
     return al, rowperm, r_out, touched, p_pan, q_pan
 
 
 panel_loop_hopper.launches = 0
 panel_loop_hopper_batched.launches = 0
+# launches by the kind of kernel taken (BATCHED_KINDS' values)
+panel_loop_hopper_batched.by_kernel = {}

@@ -680,15 +680,39 @@ def _stack(seed, B, rows, cols, dev):
     return torch.stack([_packed(seed + i, rows, cols, dev) for i in range(B)])
 
 
+def _card_stack(seed, B, rows, cols, dev):
+    """B packed rows x cols matrices drawn on the card (large batches)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randint(-2**31, 2**31, (B, rows, (cols + 31) // 32),
+                      dtype=torch.int32, device=dev, generator=g)
+    if cols % 32:
+        x[:, :, -1] &= (1 << (cols % 32)) - 1
+    return x
+
+
+def _batched_panel_kinds(fn):
+    """fn's launches of the batched pivot loop by kind of kernel."""
+    by = hopper_panel.panel_loop_hopper_batched.by_kernel
+    before = dict(by)
+    fn()
+    return {k: n - before.get(k, 0) for k, n in by.items()
+            if n != before.get(k, 0)}
+
+
 @pytest.mark.parametrize("sw", [0, 6, 42])
-@pytest.mark.parametrize("h,nb,B", [(32, 32, 300), (576, 512, 5), (200, 64, 9)])
+@pytest.mark.parametrize("h,nb,B", [(32, 32, 300), (576, 512, 5), (200, 64, 9),
+                                    (32, 32, 2**16 + 3), (33, 32, 7),
+                                    (64, 64, 1000), (576, 512, 1024)])
 @pytest.mark.parametrize("pres", [False, True])
 def test_batched_panel_kernel_equals_plain(card, h, nb, B, pres, sw):
-    """Kernel a: one block a window, each with its own base and rank (one
-    window with a zeroed band, one all zero), with and without a restricted
-    search (``sw`` rows below each window's rank); the outputs of the
-    batched plain version, window by window."""
-    x = _stack(130, B, h, nb, card)
+    """Kernel a: a warp a window (h <= 64, nb <= 64, a batch not a multiple
+    of the eight windows a block) or a block a window (several an SM at B =
+    1024), each with its own base and rank (one window with a zeroed band,
+    one all zero), with and without a restricted search (``sw`` rows below
+    each window's rank); the outputs of the batched plain version, window by
+    window."""
+    x = (_stack(130, B, h, nb, card) if B <= 300
+         else _card_stack(130, B, h, nb, card))
     x[1, 3:h // 2] = 0
     x[2] = 0
     al0 = torch.cat([x, torch.zeros_like(x)], dim=2)
@@ -702,6 +726,72 @@ def test_batched_panel_kernel_equals_plain(card, h, nb, B, pres, sw):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert g.shape == w.shape and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("h,nb,B,kind", [
+    (32, 32, 2**16 + 3, "panel_warp_kernel"),
+    (64, 64, 9, "panel_warp_kernel"),
+    (576, 512, 1024, "panel_kernel (several an SM)"),
+    (576, 512, 1, "panel_kernel (one an SM)"),
+    (1088, 1024, 1, "panel_kernel (one an SM)")])
+def test_batched_panel_kernel_by_shape(card, h, nb, B, kind):
+    """The kernel each shape takes: NIST's windows a warp each, the
+    McEliece batch's several an SM, a batch of one (``batched_one``) the
+    single call's block; each against the batched plain version."""
+    x = _card_stack(131, B, h, nb, card)
+    al0 = torch.cat([x, torch.zeros_like(x)], dim=2)
+    base = torch.zeros(B, dtype=torch.int32, device=card)
+    r0 = (torch.arange(B, device=card) % 5).to(torch.int32)
+    got = {}
+    kinds = _batched_panel_kinds(lambda: got.update(out=(
+        hopper_panel.panel_loop_hopper_batched(al0, r0, base, h, nb, True))))
+    assert kinds == {kind: 1}
+    want = hopper_panel.panel_loop_batched_plain(al0, r0, base, h, nb, True)
+    torch.cuda.synchronize()
+    for g, w in zip(got["out"], want):
+        assert g.shape == w.shape and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("sw", [0, 42])
+def test_batched_panel_kernel_skips_windows_with_nothing_in_range(card, sw):
+    """A McEliece-width batch (576 / 512) in which a third of the windows
+    have their rank at or past m, or past their last row: those take no
+    step, the rest run; every window equals the batched plain version, and
+    the skipped ones the plain outputs of a window without a pivot."""
+    B, h, nb, m = 258, 576, 512, 768
+    x = _card_stack(132, B, h, nb, card)
+    al0 = torch.cat([x, _card_stack(133, B, h, nb, card)], dim=2)
+    idx = torch.arange(B, dtype=torch.int32, device=card)
+    base = idx % 200
+    r0 = torch.where(idx % 3 == 0, torch.where(idx % 2 == 0, m + idx % 7,
+                                               base + h + idx % 4),
+                     base + idx % 50)
+    got = hopper_panel.panel_loop_hopper_batched(al0, r0, base, m, nb, False,
+                                                 sw)
+    want = hopper_panel.panel_loop_batched_plain(al0, r0, base, m, nb, False,
+                                                 sw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.equal(g, w)
+    for b in range(0, B, 3):
+        idle = hopper_panel.panel_loop_idle_plain(
+            al0[b].cpu(), int(r0[b]), int(base[b]), m, nb)
+        assert idle is not None
+        for g, w in zip(got, idle):
+            assert torch.equal(g[b].cpu(), w)
+
+
+def test_batched_panel_kernel_takes_a_misaligned_stack(card):
+    """A stack that starts 4 bytes off a 16-byte boundary (a view) is
+    copied before the 16-byte loads of the warp kernel."""
+    flat = _card_stack(134, 1, 1, 32 * (4 * 64 * 40 + 1), card).reshape(-1)
+    al0 = flat[1:].reshape(40, 64, 4)
+    r0 = torch.zeros(40, dtype=torch.int32, device=card)
+    got = hopper_panel.panel_loop_hopper_batched(al0, r0, r0, 64, 64, True)
+    want = hopper_panel.panel_loop_batched_plain(al0, r0, r0, 64, 64, True)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 def test_batched_panel_kernel_refuses_a_window_past_shared(card):

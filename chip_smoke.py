@@ -93,7 +93,6 @@ from m4ri_tpu_torch.benches.probe_mma import probe as probe_mma
 from m4ri_tpu_torch.benches.split_batched import capture_panel
 from m4ri_tpu_torch.core import permutation as perm_mod
 from m4ri_tpu_torch.core.bitmatrix import BitMatrix, mask_padding
-from m4ri_tpu_torch.models import batched as batched_mod
 from m4ri_tpu_torch.models import ple as ple_mod
 from m4ri_tpu_torch.ops import _build, hopper_panel, hopper_post, hopper_schur
 from m4ri_tpu_torch.ops.hopper_mul import gf2_mul_hopper, gf2_mul_plain
@@ -106,7 +105,7 @@ from m4ri_tpu_torch.parallel import mesh as mesh_mod
 from m4ri_tpu_torch.parallel._spawn import launch
 from m4ri_tpu_torch.parallel.dist_echelon import dist_echelonize, dist_rank
 from m4ri_tpu_torch.parallel.dist_mul import mul_dist, mul_dist_ksplit
-from m4ri_tpu_torch.parallel.dist_ple import dist_block_factor, dist_ple
+from m4ri_tpu_torch.parallel.dist_ple import dist_ple
 from m4ri_tpu_torch.ops.hopper_schur import (TILE_ROWS, TILE_WORDS,
                                              gf2_schur_update_dyn_hopper,
                                              gf2_schur_update_hopper,
@@ -114,6 +113,7 @@ from m4ri_tpu_torch.ops.hopper_schur import (TILE_ROWS, TILE_WORDS,
 from m4ri_tpu_torch.utils import config as config_mod
 from m4ri_tpu_torch.utils.config import get_config
 from m4ri_tpu_torch.utils.graycode import opt_k
+from m4ri_tpu_torch.utils import spans
 from m4ri_tpu_torch.utils.rng import GlibcRandom, reference_random_data
 
 HERE = pathlib.Path(__file__).resolve().parent
@@ -230,8 +230,13 @@ def bound(m: int, k: int, n: int) -> dict:
             "bound_by": "bytes" if t_bytes > t_ops else "operations"}
 
 
+def counted(name: str) -> int:
+    """A counter of the program (m4ri_tpu_torch/utils/spans.py)."""
+    return spans.counts().get(name, 0)
+
+
 def counts(names=None) -> dict:
-    return {name: KERNELS[name]["fn"].launches for name in names or KERNELS}
+    return {name: counted(f"launch.{name}") for name in names or KERNELS}
 
 
 def gemm_counts() -> dict:
@@ -239,9 +244,14 @@ def gemm_counts() -> dict:
 
 
 def zero_counts() -> None:
-    for spec in KERNELS.values():
-        spec["fn"].launches = 0
-    hopper_panel.panel_loop_hopper_batched.by_kernel.clear()
+    spans.reset_counts("launch.")
+
+
+def panel_kinds() -> dict:
+    """Launches of the batched pivot loop by the kind of kernel taken."""
+    key = "launch.panel_batched."
+    return {k[len(key):]: n for k, n in spans.counts().items()
+            if k.startswith(key)}
 
 
 def plain_rowblocks(a: torch.Tensor, b: torch.Tensor, rows: int = 1024):
@@ -621,7 +631,7 @@ def phase_panel_kernel(rng) -> dict:
                        "bytes_bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
                        "chain_alone_ms_without_group_ends": chain["median"],
                        "us_per_column": t["median"] / nb * 1e3})
-    panel_loop_hopper.launches = 0
+    spans.reset_counts("launch.panel_loop_hopper")
     report = {name: kernel_entry(name, bad, shapes[0],
                                  chain_floor_ms=shapes[0]["chain_floor_ms"],
                                  bytes_bound_ms=shapes[0]["bytes_bound_ms"],
@@ -891,13 +901,13 @@ def factor_counted(A, preserve_l: bool, **kw):
     """block_factor with the default engine and what it launched and read
     back: (result, launches, host syncs, miss fallbacks)."""
     zero_counts()
-    syncs, misses = (ple_mod.block_factor.host_syncs,
-                     ple_mod.block_factor.miss_fallbacks)
+    syncs, misses = (counted("readback.block_factor"),
+                     counted("fallback.block_factor"))
     out = m4.block_factor(A, preserve_l=preserve_l, **kw)
     torch.cuda.synchronize()
     return (out, counts(FACTOR_KERNELS),
-            ple_mod.block_factor.host_syncs - syncs,
-            ple_mod.block_factor.miss_fallbacks - misses)
+            counted("readback.block_factor") - syncs,
+            counted("fallback.block_factor") - misses)
 
 
 def add_counts(total: dict, got: dict) -> None:
@@ -943,7 +953,7 @@ def phase_ple_16384(seed: int) -> dict:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     # every call that waits for the card, as PyTorch's sync debug mode sees
     # them, beside the read-backs the sweep counts itself
-    syncs0 = ple_mod.block_factor.host_syncs
+    syncs0 = counted("readback.block_factor")
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -953,7 +963,7 @@ def phase_ple_16384(seed: int) -> dict:
             torch.cuda.set_sync_debug_mode("default")
     per_run["sync_debug_warn"] = {
         "synchronising_calls": sync_waits(caught),
-        "host_syncs": ple_mod.block_factor.host_syncs - syncs0}
+        "host_syncs": counted("readback.block_factor") - syncs0}
     # the persistent Schur entry instead of the gridded one
     got_dyn, launched, _, misses = with_config(
         lambda: factor_counted(A, True), schur_dyn=True)
@@ -1064,13 +1074,13 @@ def phase_ple_32768(seed: int) -> dict:
     total = {}
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
-    syncs, misses = (ple_mod.block_factor.host_syncs,
-                     ple_mod.block_factor.miss_fallbacks)
+    syncs, misses = (counted("readback.block_factor"),
+                     counted("fallback.block_factor"))
     M, P, Q, r = m4.ple(A)
     torch.cuda.synchronize()
     launched = counts(FACTOR_KERNELS)
-    syncs = ple_mod.block_factor.host_syncs - syncs
-    misses = ple_mod.block_factor.miss_fallbacks - misses
+    syncs = counted("readback.block_factor") - syncs
+    misses = counted("fallback.block_factor") - misses
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     rk = m4.rank(A)
     torch.cuda.synchronize()
@@ -1926,13 +1936,13 @@ def dist_case(name: str, cases: dict, total: dict, dist_fn, single_fn,
     timed (host clock ended by a synchronize): ``runs`` calls after these
     first ones, or with ``runs=1`` these first calls themselves (the slow
     host-bound ones)."""
-    misses = dist_block_factor.miss_fallbacks
+    misses = counted("fallback.dist_block_factor")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     got, launched = driven(dist_fn)
     t1 = time.perf_counter()
     add_counts(total, launched)
-    misses = dist_block_factor.miss_fallbacks - misses
+    misses = counted("fallback.dist_block_factor") - misses
     want = single_fn()
     torch.cuda.synchronize()
     t2 = time.perf_counter()
@@ -1965,7 +1975,7 @@ def phase_dist_nccl_1rank(seed: int) -> dict:
 
 def _dist_nccl_cases(seed: int, mesh) -> dict:
     total, cases = {}, {}
-    staged = mesh_mod.host_staged_collectives
+    staged = counted("host_staged_collectives")
     n = 16384
     rng = np.random.default_rng(seed + 40)
     A = m4.from_packed(packed(rng, n, n), n)
@@ -2058,7 +2068,7 @@ def _dist_nccl_cases(seed: int, mesh) -> dict:
               f"launched {name}")
     emit("dist_nccl_1rank", ok=True, backend="nccl", world=1, mesh=[1, 1],
          cases=cases, launches=total,
-         host_staged_collectives=mesh_mod.host_staged_collectives - staged,
+         host_staged_collectives=counted("host_staged_collectives") - staged,
          peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
     return total
 
@@ -2112,13 +2122,13 @@ def _gloo_rank(seed: int, work: str) -> None:
     zero_counts()
 
     def run(name, fn):
-        m0 = dist_block_factor.miss_fallbacks
+        m0 = counted("fallback.dist_block_factor")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out[name] = fn()
         torch.cuda.synchronize()
         ms[name] = (time.perf_counter() - t0) * 1e3
-        misses[name] = dist_block_factor.miss_fallbacks - m0
+        misses[name] = counted("fallback.dist_block_factor") - m0
 
     A, B = gloo_input(seed, "mul")
     run("mul_dist", lambda: mul_dist(A, B, sq))
@@ -2151,7 +2161,7 @@ def _gloo_rank(seed: int, work: str) -> None:
                     for k, v in out.items()}, f"{work}/outputs.pt")
     pathlib.Path(f"{work}/rank{rank}.json").write_text(json.dumps({
         "launches": launched, "ms": ms, "miss_fallbacks": misses,
-        "host_staged_collectives": mesh_mod.host_staged_collectives}))
+        "host_staged_collectives": counted("host_staged_collectives")}))
 
 
 def phase_dist_gloo_4rank(seed: int) -> dict:
@@ -2260,14 +2270,14 @@ def batched_stats(fn):
     """(result, launches, host syncs, miss fallbacks, peak GB) of ``fn``,
     every count set to 0 just before."""
     zero_counts()
-    s0, f0 = (batched_mod.block_factor_batched.host_syncs,
-              batched_mod.block_factor_batched.miss_fallbacks)
+    s0, f0 = (counted("readback.block_factor_batched"),
+              counted("fallback.block_factor_batched"))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     out = fn()
     torch.cuda.synchronize()
-    return (out, counts(), batched_mod.block_factor_batched.host_syncs - s0,
-            batched_mod.block_factor_batched.miss_fallbacks - f0,
+    return (out, counts(), counted("readback.block_factor_batched") - s0,
+            counted("fallback.block_factor_batched") - f0,
             torch.cuda.max_memory_allocated() / 1e9)
 
 
@@ -2385,10 +2395,9 @@ def phase_batched_kernels(seed: int) -> dict:
             al0, r0, base, mm, nb, pres, sw))
         lp_ = (lambda: hopper_panel.panel_loop_batched_plain(
             al0, r0, base, mm, nb, pres, sw))
-        by = hopper_panel.panel_loop_hopper_batched.by_kernel
-        before = dict(by)
+        before = panel_kinds()
         got = la()
-        kinds = {k: n - before.get(k, 0) for k, n in by.items()
+        kinds = {k: n - before.get(k, 0) for k, n in panel_kinds().items()
                  if n != before.get(k, 0)}
         # each elimination XORs the pivot row's nb/32 panel words into a row
         # and sets one multiplier bit: the L half of the output minus the
@@ -2586,7 +2595,7 @@ def phase_batched_rank_nist(seed: int) -> dict:
           and launched["gf2_schur_update_batched_hopper"] == 0,
           f"rank_batched 32x32 launched {batch_counts()}")
     check(syncs == 1 and misses == 0, f"{syncs} read-backs, {misses} fallbacks")
-    kinds = dict(hopper_panel.panel_loop_hopper_batched.by_kernel)
+    kinds = panel_kinds()
     check(kinds == {"panel_warp_kernel": 1},
           f"rank_batched 32x32 took the pivot loop's {kinds}")
     t = time_host_ms(lambda: m4.rank_batched(data, n), runs=3)
@@ -2620,7 +2629,7 @@ def phase_batched_factor_mceliece(seed: int) -> dict:
     for pres in (False, True):
         got, launched, syncs, misses, peak = batched_stats(
             lambda: m4.block_factor_batched(data, n, pres))
-        kinds = dict(hopper_panel.panel_loop_hopper_batched.by_kernel)
+        kinds = panel_kinds()
         add_counts(total, launched)
         check(all(launched[k] > 0 for k in BATCHED),
               f"McEliece preserve_l={pres} launched {launched}")
@@ -2668,7 +2677,7 @@ def phase_batched_miss_4096(seed: int) -> dict:
           f"the fallbacks launched {launched['panel_loop_hopper']} single loops")
     # every call that waits for the card, as PyTorch's sync debug mode sees
     # them, is one the sweep counts
-    s0 = batched_mod.block_factor_batched.host_syncs
+    s0 = counted("readback.block_factor_batched")
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -2677,7 +2686,7 @@ def phase_batched_miss_4096(seed: int) -> dict:
         finally:
             torch.cuda.set_sync_debug_mode("default")
     waits = sync_waits(caught)
-    check(waits == batched_mod.block_factor_batched.host_syncs - s0 == syncs,
+    check(waits == counted("readback.block_factor_batched") - s0 == syncs,
           f"{waits} synchronising calls, {syncs} counted read-backs")
     t = time_host_ms(lambda: m4.block_factor_batched(data, n, True), runs=3)
     loop = time_host_ms(lambda: [m4.block_factor(BitMatrix(data[i], n), True)
@@ -2809,8 +2818,8 @@ def batched_call(fn):
     synchronising calls, miss fallbacks, peak GB, ms on the host clock
     ended by a synchronize)."""
     zero_counts()
-    bf = batched_mod.block_factor_batched
-    s0, f0 = bf.host_syncs, bf.miss_fallbacks
+    s0, f0 = (counted("readback.block_factor_batched"),
+              counted("fallback.block_factor_batched"))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with warnings.catch_warnings(record=True) as caught:
@@ -2824,7 +2833,8 @@ def batched_call(fn):
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     waits = sync_waits(caught)
-    return (out, counts(), bf.host_syncs - s0, waits, bf.miss_fallbacks - f0,
+    return (out, counts(), counted("readback.block_factor_batched") - s0,
+            waits, counted("fallback.block_factor_batched") - f0,
             torch.cuda.max_memory_allocated() / 1e9, ms)
 
 
@@ -3259,8 +3269,8 @@ def main() -> int:
         return 1
     torch.cuda.synchronize()
     emit("done", seconds=time.time() - t0,
-         host_syncs=ple_mod.block_factor.host_syncs,
-         miss_fallbacks=ple_mod.block_factor.miss_fallbacks)
+         host_syncs=counted("readback.block_factor"),
+         miss_fallbacks=counted("fallback.block_factor"))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # what bounds the pivot loop is its chain of steps; bytes go beside it

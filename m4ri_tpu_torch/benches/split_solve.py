@@ -26,7 +26,41 @@ from ..models import solve as solve_mod
 from ..models.echelon import select_pivot_cols
 from ..models.ple import block_factor
 from ..models.triangular import trsm_lower_left, trsm_upper_left
-from .split_ple import _trace
+
+SCHUR = "Schur update (schur_transpose_kernel, schur_kernel)"
+# device kernels by substring of their name -> the stage they belong to
+STAGES = [("panel_kernel", "panel loop (panel_kernel)"),
+          ("post_pack_kernel", "panel post (post_pack_kernel, post_kernel)"),
+          ("post_kernel", "panel post (post_pack_kernel, post_kernel)"),
+          ("schur_transpose_kernel", SCHUR), ("schur_kernel", SCHUR),
+          ("gf2_gemm_kernel", "U rows (gf2_gemm_kernel, with its B^T pre-pass)"),
+          ("gemm", "small float32 products (torch.matmul)"),
+          ("Memcpy", "copies"), ("Memset", "memsets")]
+
+
+def _trace(fn):
+    """(result, wall ms, {stage: device ms}, device ms in all)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    # device activity only: with the CPU side traced as well, an operator and
+    # its kernel would both be listed and PyTorch's kernels counted twice
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    stages, total = {}, 0.0
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = ev.cuda_time_total
+        if not us:
+            continue
+        name = next((label for key, label in STAGES if key in ev.key),
+                    "other PyTorch kernels (unpack, pack, masks, gathers)")
+        stages[name] = stages.get(name, 0.0) + us / 1e3
+        total += us / 1e3
+    return out, wall, stages, total
 
 
 def _stages(a: BitMatrix, b: BitMatrix):

@@ -35,8 +35,9 @@ Python ints.  So the batched sweep here is ``_block_factor_impl``
   window can miss: the miss check is off and the sweep reads nothing back.
 
 Element ``i`` of every result equals, word for word, the single-matrix call
-on element ``i``.  ``block_factor_batched.host_syncs`` and ``.miss_fallbacks``
-count the read-backs and the panels redone at full height.
+on element ``i``.  The counters ``readback.block_factor_batched`` and
+``fallback.block_factor_batched`` (``utils/spans.py``) count the read-backs
+and the panels redone at full height.
 """
 
 from __future__ import annotations
@@ -53,6 +54,7 @@ from ..ops.hopper_post import panel_post_batched_plain, panel_post_hopper_batche
 from ..ops.hopper_schur import (gf2_schur_update_batched_hopper,
                                 gf2_schur_update_plain)
 from ..ops.mul import pack_bits, unpack_bits
+from ..utils import spans
 from ..utils.config import WORD_BITS, get_config
 from .ple import (ENGINES, _round_up, _row_ge_mask,
                   _unit_upper_inv, panel_consts, panel_widths, post_operands,
@@ -108,6 +110,14 @@ def _block_factor_batched_impl(data: torch.Tensor, m: int, n: int, nb: int,
                                window: int, engine: str):
     if engine not in ENGINES:
         raise ValueError(f"engine={engine!r}, want one of {ENGINES}")
+    with spans.span("sweep", m=m, n=n, nb=nb, window=window,
+                    batch=data.shape[0]):
+        return _sweep(data, m, n, nb, preserve_l, search_window, window,
+                      engine)
+
+
+def _sweep(data: torch.Tensor, m: int, n: int, nb: int, preserve_l: bool,
+           search_window: int, window: int, engine: str):
     hopper = engine == "hopper"
     dev = data.device
     B = data.shape[0]
@@ -135,83 +145,100 @@ def _block_factor_batched_impl(data: torch.Tensor, m: int, n: int, nb: int,
 
     r = torch.zeros(B, dtype=torch.int32, device=dev)
     for t in range(n_panels):
-        r_in = r
-        c0w = t * nbw
-        Xw = A[:, :, c0w : c0w + nbw]                  # stale panel words
-        win = (r_in[:, None] + wv[None, :]).long()     # [B, W] window rows
+        with spans.span("panel", t=t):
+            r_in = r
+            c0w = t * nbw
+            Xw = A[:, :, c0w : c0w + nbw]              # stale panel words
 
-        # ---- fast path: the pivot loop on every element's window ----
-        al0 = torch.cat([_rows(Xw, win), Xw.new_zeros((B, W, nbw))], dim=2)
-        ALw, rpw, r_f, _, p_f, q_f = loop(al0, r_in, r_in, m, nb, preserve_l,
-                                          search_window)
+            # ---- fast path: the pivot loop on every element's window ----
+            with spans.span("panel.loop"):
+                win = (r_in[:, None] + wv[None, :]).long()  # [B, W] rows
+                al0 = torch.cat([_rows(Xw, win), Xw.new_zeros((B, W, nbw))],
+                                dim=2)
+                ALw, rpw, r_f, _, p_f, q_f = loop(al0, r_in, r_in, m, nb,
+                                                  preserve_l, search_window)
 
-        # ---- batched elimination of the rows below each window ----
-        live = slotv[None, :] < (r_f - r_in)[:, None]  # [B, nb]
-        # search_window: the restricted search never pivots below the window
-        # (r + search_window <= r_in + W), so a bare below-window 1 is
-        # legitimate: no miss check, and nothing to read back
-        m_small, wmat, cmb = post_operands(ALw[:, :nb], live, q_f, t * nb, n,
-                                           preserve_l, consts,
-                                           not search_window)
-        vw_full, lamw_full, miss = post(Xw, m_small, wmat, cmb, r_in + W, m)
+            # ---- batched elimination of the rows below each window ----
+            # search_window: the restricted search never pivots below the
+            # window (r + search_window <= r_in + W), so a bare below-window
+            # 1 is legitimate: no miss check, and nothing to read back
+            with spans.span("panel.operands"):
+                live = slotv[None, :] < (r_f - r_in)[:, None]  # [B, nb]
+                m_small, wmat, cmb = post_operands(
+                    ALw[:, :nb], live, q_f, t * nb, n, preserve_l, consts,
+                    not search_window)
+            with spans.span("panel.post"):
+                vw_full, lamw_full, miss = post(Xw, m_small, wmat, cmb,
+                                                r_in + W, m)
 
-        fallbacks = []
-        n_missed = 0
-        if not search_window:
-            # the one read-back of the panel for the whole batch
-            n_missed = int(miss.sum())
-            block_factor_batched.host_syncs += 1
-        if n_missed:
-            # their indices (a stable sort puts the n_missed flagged ones
-            # first, with no read-back of its own) and ranks: one more
-            # read-back; then each is redone at full height, before A
-            # changes (Xw is a view of it)
-            which = torch.argsort((~miss).to(torch.int8),
-                                  stable=True)[:n_missed]
-            redo = torch.stack([which.to(torch.int32), r_in[which]], 1)
-            block_factor_batched.host_syncs += 1
-            for i, ri in redo.tolist():
-                block_factor_batched.miss_fallbacks += 1
-                fallbacks.append((i, run_panel_loop(
-                    Xw[i], ri, 0, t, m, nb, preserve_l, 0, engine)))
+            fallbacks = []
+            n_missed = 0
+            if not search_window:
+                # the one read-back of the panel for the whole batch
+                with spans.span("panel.readback"):
+                    n_missed = int(miss.sum())
+                spans.count("readback.block_factor_batched")
+            if n_missed:
+                # their indices (a stable sort puts the n_missed flagged ones
+                # first, with no read-back of its own) and ranks: one more
+                # read-back; then each is redone at full height, before A
+                # changes (Xw is a view of it)
+                with spans.span("panel.fallback"):
+                    which = torch.argsort((~miss).to(torch.int8),
+                                          stable=True)[:n_missed]
+                    redo = torch.stack([which.to(torch.int32), r_in[which]],
+                                       1)
+                    with spans.span("panel.readback"):
+                        redo = redo.tolist()
+                    spans.count("readback.block_factor_batched")
+                    for i, ri in redo:
+                        spans.count("fallback.block_factor_batched")
+                        fallbacks.append((i, run_panel_loop(
+                            Xw[i], ri, 0, t, m, nb, preserve_l, 0, engine)))
 
-        # ---- commit: the window path for every element that did not miss
-        # (an element that did keeps its rows here and is redone below) ----
-        rpw = torch.where(miss[:, None], wv[None, :], rpw).long()
-        _put_rows(A, win, _rows(_rows(A, win), rpw))
-        panel_full, Lpw = vw_full, lamw_full
-        _put_rows(panel_full, win, ALw[:, :, :nbw])
-        _put_rows(Lpw, win, ALw[:, :, nbw:])
-        p_pan = r_in[:, None] + p_f
-        q_pan = t * nb + q_f
-        r = r_f.clone() if fallbacks else r_f
-        for i, (AL, rp, r_s, _, p_i, q_i) in fallbacks:
-            A[i] = A[i][rp.long()]
-            panel_full[i] = AL[:, :nbw]
-            Lpw[i] = AL[:, nbw:]
-            p_pan[i] = p_i
-            q_pan[i] = q_i
-            r[i] = r_s
-        rank_panel = r - r_in
-        keep = slotv[None, :] < rank_panel[:, None]    # [B, nb]
-        sl = win[:, :nb]
-        P.scatter_(1, sl, torch.where(keep, p_pan, P.gather(1, sl)))
-        Q.scatter_(1, sl, torch.where(keep, q_pan, Q.gather(1, sl)))
-        A[:, :, c0w : c0w + nbw] = panel_full
+            # ---- commit: the window path for every element that did not
+            # miss (an element that did keeps its rows here and is redone
+            # below) ----
+            with spans.span("panel.commit"):
+                rpw = torch.where(miss[:, None], wv[None, :], rpw).long()
+                _put_rows(A, win, _rows(_rows(A, win), rpw))
+                panel_full, Lpw = vw_full, lamw_full
+                _put_rows(panel_full, win, ALw[:, :, :nbw])
+                _put_rows(Lpw, win, ALw[:, :, nbw:])
+                p_pan = r_in[:, None] + p_f
+                q_pan = t * nb + q_f
+                r = r_f.clone() if fallbacks else r_f
+                for i, (AL, rp, r_s, _, p_i, q_i) in fallbacks:
+                    A[i] = A[i][rp.long()]
+                    panel_full[i] = AL[:, :nbw]
+                    Lpw[i] = AL[:, nbw:]
+                    p_pan[i] = p_i
+                    q_pan[i] = q_i
+                    r[i] = r_s
+                rank_panel = r - r_in
+                keep = slotv[None, :] < rank_panel[:, None]    # [B, nb]
+                sl = win[:, :nb]
+                P.scatter_(1, sl, torch.where(keep, p_pan, P.gather(1, sl)))
+                Q.scatter_(1, sl, torch.where(keep, q_pan, Q.gather(1, sl)))
+                A[:, :, c0w : c0w + nbw] = panel_full
 
-        if t == n_panels - 1:
-            break                   # no trailing column is left to update
-        # ---- U rows: S_b * A_b[r_b : r_b + nb], words from c0n on ----
-        c0n = (t + 1) * nbw
-        l11 = unpack_bits(_rows(Lpw, sl), torch.int8)
-        s_pk = pack_bits(_unit_upper_inv(l11, eye_nb, steps))
-        a_block = _rows(A, sl)
-        a_block[:, :, :c0n] = 0
-        up = schur(torch.zeros_like(a_block), s_pk, a_block, 0, c0n)
-        up *= keep[:, :, None].to(torch.int32)
-        # ---- trailing update: A ^= Lp * U, in place, rows from r_in[b] to
-        # m (the padding rows below stay zero: no launch touches them) ----
-        schur(A[:, :m], Lpw[:, :m], up, r_in, c0n)
+            if t == n_panels - 1:
+                break                   # no trailing column is left to update
+            # ---- U rows: S_b * A_b[r_b : r_b + nb], words from c0n on ----
+            with spans.span("panel.u_rows"):
+                c0n = (t + 1) * nbw
+                l11 = unpack_bits(_rows(Lpw, sl), torch.int8)
+                s_pk = pack_bits(_unit_upper_inv(l11, eye_nb, steps))
+                a_block = _rows(A, sl)
+                a_block[:, :, :c0n] = 0
+                up = schur(torch.zeros_like(a_block), s_pk, a_block, 0,
+                           c0n)
+                up *= keep[:, :, None].to(torch.int32)
+            # ---- trailing update: A ^= Lp * U, in place, rows from r_in[b]
+            # to m (the padding rows below stay zero: no launch touches
+            # them) ----
+            with spans.span("panel.schur"):
+                schur(A[:, :m], Lpw[:, :m], up, r_in, c0n)
     return (A[:, :m, : data.shape[2]].contiguous(), P[:, :m].contiguous(),
             Q[:, :n].contiguous(), r)
 
@@ -246,13 +273,6 @@ def block_factor_batched(data: torch.Tensor, ncols: int, preserve_l: bool,
                 torch.zeros(B, dtype=torch.int32, device=dev))
     return _block_factor_batched_impl(data, m, ncols, nb, preserve_l,
                                       search_window, window, engine)
-
-
-# counted where they happen: read-backs from the device (one a panel, one
-# more on a panel where some element missed; none under a search window)
-# and panels redone at full height
-block_factor_batched.host_syncs = 0
-block_factor_batched.miss_fallbacks = 0
 
 
 def rank_batched(data: torch.Tensor, ncols: int) -> torch.Tensor:

@@ -36,6 +36,7 @@ from ..core.bitmatrix import (BitMatrix, identity, keep_below, padding_words,
 from ..core.permutation import apply_p_left_batched
 from ..core.transpose import transpose_words
 from ..ops.mul import pack_bits
+from ..utils import spans
 from ..utils.config import WORD_BITS
 from ..utils.graycode import opt_k
 from .batched import _check_stack, _rows, block_factor_batched, \
@@ -92,12 +93,14 @@ def _trsm(t: torch.Tensor, b: torch.Tensor, ncols: int, upper: bool,
         raise ValueError(f"t is {n} x {n}, b {b.shape[1]} x {ncols}")
     t = _clean_tri(BitMatrix(t, n), upper)
     rec = _trsm_left_rec if left else _trsm_right_rec
-    return rec(t, BitMatrix(b, ncols), upper, _mul).data
+    with spans.span("trsm"):
+        return rec(t, BitMatrix(b, ncols), upper, _mul).data
 
 
 def _trtri_batched(t: torch.Tensor, upper: bool) -> torch.Tensor:
     n = _tri_operand(t)
-    return _trtri(_clean_tri(BitMatrix(t, n), upper), upper, _mul).data
+    with spans.span("trsm"):
+        return _trtri(_clean_tri(BitMatrix(t, n), upper), upper, _mul).data
 
 
 def trtri_upper_batched(t: torch.Tensor) -> torch.Tensor:
@@ -160,6 +163,7 @@ def _beyond_rank(r: torch.Tensor, rows: int) -> torch.Tensor:
     return (k >= r[:, None]).to(torch.int32)[:, :, None]
 
 
+@spans.spanned("rref")
 def _rref_from_ref(data: torch.Tensor, q: torch.Tensor, r: torch.Tensor,
                    m: int, n: int) -> torch.Tensor:
     """Top rows of every element's REF -> RREF via U_rr^{-1} U, U_rr
@@ -175,6 +179,7 @@ def _rref_from_ref(data: torch.Tensor, q: torch.Tensor, r: torch.Tensor,
     return out
 
 
+@spans.spanned("rref")
 def _pluq_echelon_post(data: torch.Tensor, q: torch.Tensor, r: torch.Tensor,
                        m: int, n: int, full: bool) -> torch.Tensor:
     """The single ``_pluq_echelon_post`` with the rank a mask: row i drops
@@ -198,6 +203,7 @@ def _pluq_echelon_post(data: torch.Tensor, q: torch.Tensor, r: torch.Tensor,
     return top & padding_words(n, dev)
 
 
+@spans.entry("echelonize_batched")
 def echelonize_batched(data: torch.Tensor, ncols: int, full: bool = True,
                        nb: int | None = None, strategy: str = "m4ri"):
     """(R)REF of every element: ``(E [B, m, w], r int32 [B])``, element i
@@ -307,6 +313,7 @@ def invert_naive_batched(data: torch.Tensor):
 # ------------------------------------------------------ solve and kernel
 
 
+@spans.spanned("solve")
 def _solve_from_factors(data: torch.Tensor, p: torch.Tensor, q: torch.Tensor,
                         r: torch.Tensor, b: torch.Tensor, bcols: int, m: int,
                         n: int, from_pivot_cols: bool):
@@ -341,6 +348,7 @@ def _solve_from_factors(data: torch.Tensor, p: torch.Tensor, q: torch.Tensor,
     return x[:, :n] & padding_words(bcols, dev), consistent
 
 
+@spans.entry("solve_left_batched")
 def solve_left_batched(a: torch.Tensor, ncols: int, b: torch.Tensor,
                        bcols: int, nb: int | None = None):
     """A X = B for every element: ``a`` [B, m, w(ncols)], ``b`` [B, m,

@@ -49,6 +49,7 @@ from ..ops.hopper_schur import (TILE_ROWS, TILE_WORDS,
                                 gf2_schur_update_hopper,
                                 gf2_schur_update_plain)
 from ..ops.mul import exact_float32, pack_bits, unpack_bits
+from ..utils import spans
 from ..utils.config import WORD_BITS, get_config
 
 __all__ = ["ple", "pluq", "block_factor"]
@@ -175,6 +176,13 @@ def _block_factor_impl(data: torch.Tensor, m: int, n: int, nb: int,
                        dyn_skip: bool = False):
     if engine not in ENGINES:
         raise ValueError(f"engine={engine!r}, want one of {ENGINES}")
+    with spans.span("sweep", m=m, n=n, nb=nb, window=window, batch=1):
+        return _sweep(data, m, n, nb, preserve_l, search_window, window,
+                      engine, dyn_skip)
+
+
+def _sweep(data: torch.Tensor, m: int, n: int, nb: int, preserve_l: bool,
+           search_window: int, window: int, engine: str, dyn_skip: bool):
     hopper = engine == "hopper"
     dev = data.device
     nbw = nb // WORD_BITS
@@ -201,77 +209,97 @@ def _block_factor_impl(data: torch.Tensor, m: int, n: int, nb: int,
 
     r = 0
     for t in range(n_panels):
-        r_in = r
-        c0w = t * nbw
-        # the padding makes every slice below whole (torch would shorten it)
-        assert r_in + W <= m_pad and r_in + nb <= m_pad, (r_in, W, nb, m_pad)
-        Xw = A[:, c0w : c0w + nbw]                      # stale panel words
+        with spans.span("panel", t=t):
+            r_in = r
+            c0w = t * nbw
+            # the padding makes every slice below whole (torch would shorten
+            # it)
+            assert r_in + W <= m_pad and r_in + nb <= m_pad, (r_in, W, nb,
+                                                              m_pad)
+            Xw = A[:, c0w : c0w + nbw]                  # stale panel words
 
-        # ---- fast path: sequential loop on the W-row window only ----
-        ALw, rpw, r_f, _, p_f, q_f = run_panel_loop(
-            Xw[r_in : r_in + W], r_in, r_in, t, m, nb, preserve_l,
-            search_window, engine)
+            # ---- fast path: sequential loop on the W-row window only ----
+            with spans.span("panel.loop"):
+                ALw, rpw, r_f, _, p_f, q_f = run_panel_loop(
+                    Xw[r_in : r_in + W], r_in, r_in, t, m, nb, preserve_l,
+                    search_window, engine)
 
-        # ---- batched elimination of the rows below the window ----
-        live = slotv < r_f - r_in
-        # search_window: restricted search never pivots outside the window
-        # by construction (r + search_window <= r_in + W), so a bare
-        # below-window 1 is legitimate and the miss check is disabled.
-        m_small, wmat, cmb = post_operands(
-            ALw[:nb], live, q_f - t * nb, t * nb, n, preserve_l, consts,
-            not search_window)
-        vw_full, lamw_full, miss = post(Xw, m_small, wmat, cmb, r_in + W, m)
+            # ---- batched elimination of the rows below the window ----
+            # search_window: restricted search never pivots outside the
+            # window by construction (r + search_window <= r_in + W), so a
+            # bare below-window 1 is legitimate and the miss check is
+            # disabled.
+            with spans.span("panel.operands"):
+                live = slotv < r_f - r_in
+                m_small, wmat, cmb = post_operands(
+                    ALw[:nb], live, q_f - t * nb, t * nb, n, preserve_l,
+                    consts, not search_window)
+            with spans.span("panel.post"):
+                vw_full, lamw_full, miss = post(Xw, m_small, wmat, cmb,
+                                                r_in + W, m)
 
-        # the one read-back of the panel: the window's rank and the miss flag
-        r_fast, missed = torch.stack(
-            [r_f.to(torch.int32), miss.to(torch.int32)]).tolist()
-        block_factor.host_syncs += 1
+            # the one read-back of the panel: the window's rank and the miss
+            # flag
+            flags = torch.stack([r_f.to(torch.int32), miss.to(torch.int32)])
+            with spans.span("panel.readback"):
+                r_fast, missed = flags.tolist()
+            spans.count("readback.block_factor")
 
-        if missed and not search_window:
-            # exact full-height panel sweep; runs only when the window missed
-            block_factor.miss_fallbacks += 1
-            AL, rp, r_s, _, p_pan, q_pan = run_panel_loop(
-                Xw, r_in, 0, t, m, nb, preserve_l, search_window, engine)
-            r = int(r_s)
-            block_factor.host_syncs += 1
-            panel_full, Lpw = AL[:, :nbw], AL[:, nbw:]
-            A = _apply_row_perm_full(A, rp)
-        else:
-            r = r_fast
-            panel_full, Lpw, p_pan, q_pan = vw_full, lamw_full, p_f, q_f
-            panel_full[r_in : r_in + W] = ALw[:, :nbw]
-            Lpw[r_in : r_in + W] = ALw[:, nbw:]
-            A = _apply_row_perm_window(A, rpw, r_in)
+            fell_back = bool(missed) and not search_window
+            if fell_back:
+                # exact full-height panel sweep; runs only when the window
+                # missed
+                with spans.span("panel.fallback"):
+                    spans.count("fallback.block_factor")
+                    AL, rp, r_s, _, p_pan, q_pan = run_panel_loop(
+                        Xw, r_in, 0, t, m, nb, preserve_l, search_window,
+                        engine)
+                    with spans.span("panel.readback"):
+                        r = int(r_s)
+                    spans.count("readback.block_factor")
+                    panel_full, Lpw = AL[:, :nbw], AL[:, nbw:]
+                    A = _apply_row_perm_full(A, rp)
 
-        # commit the panel's pivot records into the global swap arrays
-        rank_panel = r - r_in
-        P[r_in : r] = p_pan[:rank_panel]
-        Q[r_in : r] = q_pan[:rank_panel]
-        A = _write_panel_cols(A, panel_full, c0w)
+            # commit the panel's pivot records into the global swap arrays
+            with spans.span("panel.commit"):
+                if not fell_back:
+                    r = r_fast
+                    panel_full, Lpw = vw_full, lamw_full
+                    p_pan, q_pan = p_f, q_f
+                    panel_full[r_in : r_in + W] = ALw[:, :nbw]
+                    Lpw[r_in : r_in + W] = ALw[:, nbw:]
+                    A = _apply_row_perm_window(A, rpw, r_in)
+                rank_panel = r - r_in
+                P[r_in : r] = p_pan[:rank_panel]
+                Q[r_in : r] = q_pan[:rank_panel]
+                A = _write_panel_cols(A, panel_full, c0w)
 
-        # --- U rows of this panel via nilpotent inversion of L11 ---
-        l11 = unpack_bits(Lpw[r_in : r_in + nb], torch.int8)
-        s_pk = pack_bits(_unit_upper_inv(l11, eye_nb, steps))
-        a_block = A[r_in : r_in + nb]
-        if hopper:
-            gf2_mul_hopper(s_pk, a_block, out=up)
-        else:
-            up.copy_(gf2_mul_plain(s_pk, a_block))
-        up[rank_panel:] = 0
-        c0n = (t + 1) * nbw
-        up[:, :c0n] = 0          # only trailing columns take the Schur update
+            # --- U rows of this panel via nilpotent inversion of L11 ---
+            with spans.span("panel.u_rows"):
+                l11 = unpack_bits(Lpw[r_in : r_in + nb], torch.int8)
+                s_pk = pack_bits(_unit_upper_inv(l11, eye_nb, steps))
+                a_block = A[r_in : r_in + nb]
+                if hopper:
+                    gf2_mul_hopper(s_pk, a_block, out=up)
+                else:
+                    up.copy_(gf2_mul_plain(s_pk, a_block))
+                up[rank_panel:] = 0
+                c0n = (t + 1) * nbw
+                up[:, :c0n] = 0   # only trailing columns take the update
 
-        # --- Schur update: A ^= Lp @ U, in place; tiles above the rank or
-        # left of the trailing edge are skipped by the kernels ---
-        if not hopper:
-            gf2_schur_update_plain(A, Lpw, up)
-        elif dyn:
-            gf2_schur_update_dyn_hopper(A, Lpw, up, r_in, c0n)
-        else:
-            # t is known here, so the finished column tiles are not launched
-            gf2_schur_update_hopper(
-                A, Lpw, up, r_in, c0n,
-                col_tile_skip=min(c0n // TILE_WORDS, tiles_j - 1))
+            # --- Schur update: A ^= Lp @ U, in place; tiles above the rank
+            # or left of the trailing edge are skipped by the kernels ---
+            with spans.span("panel.schur"):
+                if not hopper:
+                    gf2_schur_update_plain(A, Lpw, up)
+                elif dyn:
+                    gf2_schur_update_dyn_hopper(A, Lpw, up, r_in, c0n)
+                else:
+                    # t is known here, so the finished column tiles are not
+                    # launched
+                    gf2_schur_update_hopper(
+                        A, Lpw, up, r_in, c0n,
+                        col_tile_skip=min(c0n // TILE_WORDS, tiles_j - 1))
     return (A[:m, : data.shape[1]].contiguous(), P[:m].contiguous(),
             Q[:n].contiguous(), r)
 
@@ -317,12 +345,6 @@ def block_factor(a: BitMatrix, preserve_l: bool, nb: int | None = None,
             else "plain"
     return _block_factor_impl(a.data, a.nrows, a.ncols, nb, preserve_l,
                               search_window, window, engine, cfg.schur_dyn)
-
-
-# counted where they happen: read-backs from the device (one a panel, one
-# more on a miss) and panels redone at full height
-block_factor.host_syncs = 0
-block_factor.miss_fallbacks = 0
 
 
 def _compress_l_seq(data: torch.Tensor, q: torch.Tensor, r: int, m: int,
@@ -406,6 +428,7 @@ def _compress_l_impl(data: torch.Tensor, q: torch.Tensor, r: int, m: int,
     return packed[:, :w]
 
 
+@spans.entry("ple")
 def ple(a: BitMatrix, nb: int | None = None):
     """PLE decomposition (reference API: mzd_ple, ple.c:33).
 
@@ -417,7 +440,8 @@ def ple(a: BitMatrix, nb: int | None = None):
     and identity swap arrays.  Here the port differs from the JAX package,
     whose ``ple`` raises ``TypeError`` on such shapes."""
     data, p, q, r = block_factor(a, preserve_l=True, nb=nb)
-    data = _compress_l_impl(data, q, r, a.nrows, a.ncols)
+    with spans.span("compress_l"):
+        data = _compress_l_impl(data, q, r, a.nrows, a.ncols)
     return mask_padding(BitMatrix(data, a.ncols)), p, q, r
 
 

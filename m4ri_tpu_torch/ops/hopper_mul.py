@@ -37,6 +37,7 @@ import functools
 import numpy as np
 import torch
 
+from ..utils import spans
 from ..utils.config import WORD_BITS
 
 __all__ = ["gf2_mul_hopper", "gf2_mul_plain", "check_operands",
@@ -208,19 +209,17 @@ def gf2_mul_hopper(a: torch.Tensor, b: torch.Tensor,
     overlap a or b.  CPU tensors take the plain version; CUDA tensors launch
     the kernel or raise."""
     shape = check_operands(a, b, out)
-    if not a.is_cuda:
-        res = gf2_mul_plain(a, b)
-        return res if out is None else out.copy_(res)
     m, _, k, nw = shape
-    if out is None:
-        out = torch.empty((m, nw), dtype=_I32, device=a.device)
-    if m == 0 or nw == 0:
+    with spans.span("kernel.gf2_mul_hopper", m=m, k=k, nw=nw):
+        if not a.is_cuda:
+            res = gf2_mul_plain(a, b)
+            return res if out is None else out.copy_(res)
+        if out is None:
+            out = torch.empty((m, nw), dtype=_I32, device=a.device)
+        if m == 0 or nw == 0:
+            return out
+        if k == 0:
+            return out.zero_()
+        launch_gemm(a, b, out, shape, False, False)
+        spans.count("launch.gf2_mul_hopper")
         return out
-    if k == 0:
-        return out.zero_()
-    launch_gemm(a, b, out, shape, False, False)
-    gf2_mul_hopper.launches += 1
-    return out
-
-
-gf2_mul_hopper.launches = 0

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import spans
 from .hopper_mul import check_operands, gf2_mul_plain, launch_gemm
 
 __all__ = ["gf2_mul_hopper_v2"]
@@ -39,21 +40,20 @@ def gf2_mul_hopper_v2(a: torch.Tensor, b: torch.Tensor,
     shape = check_operands(a, b, out)
     if accumulate and out is None:
         raise ValueError("accumulate=True needs the matrix to accumulate into")
-    if not a.is_cuda:
-        res = gf2_mul_plain(a, b)
-        if out is None:
-            return res
-        return out.bitwise_xor_(res) if accumulate else out.copy_(res)
     m, _, k, nw = shape
-    if out is None:
-        out = torch.empty((m, nw), dtype=torch.int32, device=a.device)
-    if m == 0 or nw == 0:
+    with spans.span("kernel.gf2_mul_hopper_v2", m=m, k=k, nw=nw,
+                    accumulate=int(accumulate)):
+        if not a.is_cuda:
+            res = gf2_mul_plain(a, b)
+            if out is None:
+                return res
+            return out.bitwise_xor_(res) if accumulate else out.copy_(res)
+        if out is None:
+            out = torch.empty((m, nw), dtype=torch.int32, device=a.device)
+        if m == 0 or nw == 0:
+            return out
+        if k == 0:
+            return out if accumulate else out.zero_()
+        launch_gemm(a, b, out, shape, accumulate, True)
+        spans.count("launch.gf2_mul_hopper_v2")
         return out
-    if k == 0:
-        return out if accumulate else out.zero_()
-    launch_gemm(a, b, out, shape, accumulate, True)
-    gf2_mul_hopper_v2.launches += 1
-    return out
-
-
-gf2_mul_hopper_v2.launches = 0

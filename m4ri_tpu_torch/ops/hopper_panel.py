@@ -49,6 +49,7 @@ import functools
 import numpy as np
 import torch
 
+from ..utils import spans
 from ..utils.config import WORD_BITS
 
 __all__ = ["panel_loop_hopper", "panel_loop_plain",
@@ -63,7 +64,8 @@ _MAX_NBW = 64                                     # MAX_NBW of the kernel
 # a row in registers: the widest the batched sweep gives a window of 64 rows,
 # whose nb <= h), WARP_WINDOWS windows a block (csrc/gf2_panel_hopper.cu)
 WARP_MAX_H, WARP_MAX_NBW, WARP_WINDOWS = 64, 2, 8
-# the kinds of kernel the batched launch takes (batched_plan in the source)
+# the kinds of kernel the batched launch takes (batched_plan in the source),
+# each counted as ``launch.panel_batched.<kind>``
 BATCHED_KINDS = {1: "panel_warp_kernel", 2: "panel_kernel (several an SM)",
                  3: "panel_kernel (one an SM)"}
 
@@ -517,7 +519,7 @@ def _launch(al0, r0, base, m, nb, preserve_l, search_window, mode=0,
                      ptr[4], r_ptr, ptr[6],
                      base, m, h, nbw, int(bool(preserve_l)), search_window,
                      mode, int(row_work), r_val, stream)
-    panel_loop_hopper.launches += 1
+    spans.count("launch.panel_loop_hopper")
     if err:
         raise RuntimeError(f"panel_loop_hopper: CUDA error {err} at launch "
                            f"(h={h}, nb={nb}, mode={mode})")
@@ -548,9 +550,12 @@ def panel_loop_hopper(al0: torch.Tensor, r0, base: int, m: int, nb: int,
     kernel.  CPU tensors take the plain version; CUDA tensors launch the
     kernel or raise."""
     _check(al0, nb)
-    if not al0.is_cuda:
-        return panel_loop_plain(al0, r0, base, m, nb, preserve_l, search_window)
-    return _launch(al0, r0, base, m, nb, preserve_l, search_window)
+    with spans.span("kernel.panel_loop_hopper", h=al0.shape[0], nb=nb,
+                    base=base, search_window=search_window):
+        if not al0.is_cuda:
+            return panel_loop_plain(al0, r0, base, m, nb, preserve_l,
+                                    search_window)
+        return _launch(al0, r0, base, m, nb, preserve_l, search_window)
 
 
 def panel_loop_hopper_batched(al0: torch.Tensor, r0: torch.Tensor,
@@ -571,9 +576,18 @@ def panel_loop_hopper_batched(al0: torch.Tensor, r0: torch.Tensor,
             raise TypeError(f"{name}: want a tensor of shape ({B},)")
         if t.device != al0.device:
             raise ValueError(f"{name} lies on {t.device}, al0 on {al0.device}")
-    if not al0.is_cuda:
-        return panel_loop_batched_plain(al0, r0, base, m, nb, preserve_l,
-                                        search_window)
+    with spans.span("kernel.panel_loop_hopper_batched", batch=B,
+                    h=al0.shape[1], nb=nb, search_window=search_window):
+        if not al0.is_cuda:
+            return panel_loop_batched_plain(al0, r0, base, m, nb, preserve_l,
+                                            search_window)
+        return _launch_batched(al0, r0, base, m, nb, preserve_l,
+                               search_window)
+
+
+def _launch_batched(al0, r0, base, m, nb, preserve_l, search_window):
+    """Launch the batched pivot loop (checked by the caller)."""
+    B = al0.shape[0]
     dev = al0.device
     h, w2 = al0.shape[1:]
     al0 = al0.contiguous()
@@ -603,14 +617,6 @@ def panel_loop_hopper_batched(al0: torch.Tensor, r0: torch.Tensor,
         raise RuntimeError(f"panel_loop_hopper_batched: CUDA error {err} at "
                            f"launch (B={B}, h={h}, nb={nb}: neither a warp "
                            "nor mode shared takes the window)")
-    panel_loop_hopper_batched.launches += 1
-    kind = BATCHED_KINDS[kind_out.value]
-    by = panel_loop_hopper_batched.by_kernel
-    by[kind] = by.get(kind, 0) + 1
+    spans.count("launch.panel_loop_hopper_batched")
+    spans.count(f"launch.panel_batched.{BATCHED_KINDS[kind_out.value]}")
     return al, rowperm, r_out, touched, p_pan, q_pan
-
-
-panel_loop_hopper.launches = 0
-panel_loop_hopper_batched.launches = 0
-# launches by the kind of kernel taken (BATCHED_KINDS' values)
-panel_loop_hopper_batched.by_kernel = {}

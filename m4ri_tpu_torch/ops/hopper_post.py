@@ -43,6 +43,7 @@ import functools
 import numpy as np
 import torch
 
+from ..utils import spans
 from ..utils.config import WORD_BITS
 from .mul import _dot_parity, pack_bits, unpack_bits
 
@@ -238,8 +239,17 @@ def panel_post_hopper(xw: torch.Tensor, m_small: torch.Tensor,
     one call into the library, and two allocations: the flag, and one that
     vw, lamw and the packed operands are cut from."""
     _check(xw, m_small, wmat, colmask_bits)
-    if not xw.is_cuda:
-        return panel_post_plain(xw, m_small, wmat, colmask_bits, below0, mvalid)
+    with spans.span("kernel.panel_post_hopper", m=xw.shape[0],
+                    nb=m_small.shape[0], mvalid=mvalid,
+                    below0=below0 if isinstance(below0, int) else None):
+        if not xw.is_cuda:
+            return panel_post_plain(xw, m_small, wmat, colmask_bits, below0,
+                                    mvalid)
+        return _launch(xw, m_small, wmat, colmask_bits, below0, mvalid)
+
+
+def _launch(xw, m_small, wmat, colmask_bits, below0, mvalid):
+    """Launch the single elimination (checked by the caller)."""
     m, nbw = xw.shape
     dev = xw.device
     body = (m * nbw + 3) // 4 * 4           # keeps every part 16-byte aligned
@@ -259,7 +269,7 @@ def panel_post_hopper(xw: torch.Tensor, m_small: torch.Tensor,
                         base + 8 * body, base, base + 4 * body,
                         miss.data_ptr(), m, nbw, int(below0), int(mvalid),
                         torch.cuda.current_stream().cuda_stream)
-    panel_post_hopper.launches += 1
+    spans.count("launch.panel_post_hopper")
     if err:
         raise RuntimeError(f"panel_post_hopper: CUDA error {err} at launch")
     return vw, lamw, miss
@@ -318,14 +328,22 @@ def panel_post_hopper_batched(xw: torch.Tensor, m_small: torch.Tensor,
     raise.  Nothing is read back: each element's row range stays on the
     card."""
     _check_batched(xw, m_small, wmat, colmask_bits, below0)
-    if not xw.is_cuda:
-        return panel_post_batched_plain(xw, m_small, wmat, colmask_bits,
-                                        below0, mvalid)
+    with spans.span("kernel.panel_post_hopper_batched", batch=xw.shape[0],
+                    m=xw.shape[1], nb=m_small.shape[1], mvalid=mvalid):
+        if not xw.is_cuda:
+            return panel_post_batched_plain(xw, m_small, wmat, colmask_bits,
+                                            below0, mvalid)
+        return _launch_batched(xw, m_small, wmat, colmask_bits, below0,
+                               mvalid)
+
+
+def _launch_batched(xw, m_small, wmat, colmask_bits, below0, mvalid):
+    """Launch the batched elimination (checked by the caller)."""
     device = xw.get_device()
     if torch.cuda.current_device() != device:
         with torch.cuda.device(device):
-            return panel_post_hopper_batched(xw, m_small, wmat, colmask_bits,
-                                             below0, mvalid)
+            return _launch_batched(xw, m_small, wmat, colmask_bits, below0,
+                                   mvalid)
     B, m, nbw = xw.shape
     dev = xw.device
     body = (B * m * nbw + 3) // 4 * 4       # keeps every part 16-byte aligned
@@ -348,12 +366,8 @@ def panel_post_hopper_batched(xw: torch.Tensor, m_small: torch.Tensor,
                     base + 4 * body, miss.data_ptr(), below0.data_ptr(),
                     base + 4 * (2 * body + ops), 0, B, m, nbw, int(mvalid),
                     torch._C._cuda_getCurrentRawStream(device))
-    panel_post_hopper_batched.launches += 1
+    spans.count("launch.panel_post_hopper_batched")
     if err:
         raise RuntimeError(f"panel_post_hopper_batched: CUDA error {err} at "
                            "launch")
     return vw, lamw, miss
-
-
-panel_post_hopper.launches = 0
-panel_post_hopper_batched.launches = 0

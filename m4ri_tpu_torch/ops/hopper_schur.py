@@ -50,6 +50,7 @@ import functools
 import numpy as np
 import torch
 
+from ..utils import spans
 from ..utils.config import WORD_BITS
 from .hopper_mul import check_operands, gf2_mul_plain
 
@@ -170,6 +171,12 @@ def _slices(lp: torch.Tensor, up: torch.Tensor):
         yield lp[..., w0:w0 + KW_MAX], ups, -(-ups.shape[-2] // 256)
 
 
+def _host(x):
+    """A bound as a span attribute: the int, or None for a tensor (a span
+    reads nothing from the card)."""
+    return x if isinstance(x, int) else None
+
+
 def _bound(x, name: str, device):
     """(tensor on the card or None, value or None): a tensor on the card is
     read there by the kernel; an int or a tensor on the host goes by value."""
@@ -217,7 +224,8 @@ def _capacity(ks: int, batched: bool = False) -> int:
 
 
 def _launch(fn, c, lp, up, r0, c0w, skip: int, dyn: bool) -> None:
-    """One launch for each KW_MAX words of contraction; counted on ``fn``."""
+    """One launch for each KW_MAX words of contraction, each counted as
+    ``launch.<fn's name>``."""
     m, nw = c.shape
     r0_t, r0_v = _bound(r0, "r0", c.device)
     c0w_t, c0w_v = _bound(c0w, "c0w", c.device)
@@ -240,7 +248,7 @@ def _launch(fn, c, lp, up, r0, c0w, skip: int, dyn: bool) -> None:
                 ut.data_ptr(), None if r0_t is None else r0_t.data_ptr(),
                 None if c0w_t is None else c0w_t.data_ptr(), r0_v or 0,
                 c0w_v or 0, m, nw, ks, skip, j0, blocks, stream)
-            fn.launches += 1
+            spans.count(f"launch.{fn.__name__}")
             if err:
                 raise RuntimeError(f"{fn.__name__}: CUDA error {err} at "
                                    f"launch (c {m}x{nw} words, k={up.shape[0]})")
@@ -261,12 +269,16 @@ def gf2_schur_update_hopper(c: torch.Tensor, lp: torch.Tensor,
     if isinstance(c0w, int) and col_tile_skip * TILE_WORDS > c0w:
         raise ValueError(f"col_tile_skip={col_tile_skip} reaches past "
                          f"c0w={c0w}")
-    if not c.is_cuda:
-        return gf2_schur_update_plain(c, lp, up)
-    if c.numel() == 0 or up.shape[0] == 0:
+    with spans.span("kernel.gf2_schur_update_hopper", m=c.shape[0],
+                    nw=c.shape[1], k=up.shape[0], r0=_host(r0),
+                    c0w=_host(c0w), col_tile_skip=col_tile_skip):
+        if not c.is_cuda:
+            return gf2_schur_update_plain(c, lp, up)
+        if c.numel() == 0 or up.shape[0] == 0:
+            return c
+        _launch(gf2_schur_update_hopper, c, lp, up, r0, c0w, col_tile_skip,
+                False)
         return c
-    _launch(gf2_schur_update_hopper, c, lp, up, r0, c0w, col_tile_skip, False)
-    return c
 
 
 def gf2_schur_update_dyn_hopper(c: torch.Tensor, lp: torch.Tensor,
@@ -281,12 +293,14 @@ def gf2_schur_update_dyn_hopper(c: torch.Tensor, lp: torch.Tensor,
     if m % TILE_ROWS or nw % TILE_WORDS:
         raise ValueError(f"c is {m} x {nw} words, want multiples of "
                          f"{TILE_ROWS} x {TILE_WORDS}")
-    if not c.is_cuda:
-        return gf2_schur_update_plain(c, lp, up)
-    if c.numel() == 0 or up.shape[0] == 0:
+    with spans.span("kernel.gf2_schur_update_dyn_hopper", m=m, nw=nw,
+                    k=up.shape[0], r0=_host(r0), c0w=_host(c0w)):
+        if not c.is_cuda:
+            return gf2_schur_update_plain(c, lp, up)
+        if c.numel() == 0 or up.shape[0] == 0:
+            return c
+        _launch(gf2_schur_update_dyn_hopper, c, lp, up, r0, c0w, 0, True)
         return c
-    _launch(gf2_schur_update_dyn_hopper, c, lp, up, r0, c0w, 0, True)
-    return c
 
 
 def _check_batched(c, lp, up):
@@ -328,8 +342,17 @@ def gf2_schur_update_batched_hopper(c: torch.Tensor, lp: torch.Tensor,
         if r0.device != c.device:
             raise ValueError(f"r0 lies on {r0.device}, c on {c.device}")
         r0_t = r0.to(torch.int32).contiguous()
-    if not c.is_cuda:
-        return gf2_schur_update_plain(c, lp, up)
+    with spans.span("kernel.gf2_schur_update_batched_hopper", batch=B, m=m,
+                    nw=nw, k=up.shape[1], r0=_host(r0), c0w=c0w):
+        if not c.is_cuda:
+            return gf2_schur_update_plain(c, lp, up)
+        return _launch_batched(c, lp, up, r0, r0_t, c0w)
+
+
+def _launch_batched(c, lp, up, r0, r0_t, c0w: int) -> torch.Tensor:
+    """Launch the batched update (checked by the caller); ``r0_t`` is r0 as
+    an int32 tensor on the card, or None for an int."""
+    B, m, nw = c.shape
     tiles_i, tiles_j = _tiles(m, nw)
     j0 = max(c0w, 0) // TILE_WORDS
     if c.numel() == 0 or up.shape[1] == 0 or j0 >= tiles_j:
@@ -346,7 +369,7 @@ def gf2_schur_update_batched_hopper(c: torch.Tensor, lp: torch.Tensor,
     device = c.get_device()
     if torch.cuda.current_device() != device:
         with torch.cuda.device(device):
-            return gf2_schur_update_batched_hopper(c, lp, up, r0, c0w)
+            return _launch_batched(c, lp, up, r0, r0_t, c0w)
     stream = torch._C._cuda_getCurrentRawStream(device)
     for lps, ups, ks in _slices(lp, up):
         blocks = min(upper, _capacity(ks, True))
@@ -361,14 +384,9 @@ def gf2_schur_update_batched_hopper(c: torch.Tensor, lp: torch.Tensor,
             None if r0_t is None else r0_t.data_ptr(), base + 4 * tw,
             0 if r0_t is not None else int(r0), c0w, m, nw, B, ks, blocks,
             stream)
-        gf2_schur_update_batched_hopper.launches += 1
+        spans.count("launch.gf2_schur_update_batched_hopper")
         if err:
             raise RuntimeError(
                 f"gf2_schur_update_batched_hopper: CUDA error {err} at "
                 f"launch (B={B}, c {m}x{nw} words, k={up.shape[1]})")
     return c
-
-
-gf2_schur_update_hopper.launches = 0
-gf2_schur_update_dyn_hopper.launches = 0
-gf2_schur_update_batched_hopper.launches = 0

@@ -25,6 +25,7 @@ import torch
 
 from ..core.bitmatrix import BitMatrix, popcount32, width_for
 from ..core.transpose import transpose
+from ..utils import spans
 from ..utils.config import WORD_BITS, get_config
 
 __all__ = ["unpack_bits", "pack_bits", "mul_naive", "mul", "addmul",
@@ -186,6 +187,7 @@ def _is_sqr(a: BitMatrix, b: BitMatrix) -> bool:
             and a.data.device == b.data.device)
 
 
+@spans.entry("mul")
 def mul(a: BitMatrix, b: BitMatrix) -> BitMatrix:
     """C = A*B over GF(2) (reference API: mzd_mul, strassen.c:345)."""
     assert a.ncols == b.nrows, (a.shape, b.shape)

@@ -35,6 +35,7 @@ from ..core.bitmatrix import BitMatrix, mask_padding, width_for
 from ..models.ple import (_compress_l_impl, _dot2, _round_up, _unit_upper_inv,
                           run_panel_loop)
 from ..ops.mul import mul_packed_data, pack_bits, unpack_bits
+from ..utils import spans
 from ..utils.config import WORD_BITS, get_config
 from .mesh import (all_gather, any_reduce, axis_index, axis_size, psum,
                    xor_allgather_reduce)
@@ -108,15 +109,15 @@ def _ple_local(a_loc: torch.Tensor, m: int, n: int, nb: int, W: int,
         # the one read-back of the panel, the same value on every rank
         r_fast, missed = torch.stack(
             [r_f.reshape(()).to(torch.int32), miss.to(torch.int32)]).tolist()
-        dist_block_factor.host_syncs += 1
+        spans.count("readback.dist_block_factor")
 
         if missed:
             # full-height canonical loop on the position-ordered panel
-            dist_block_factor.miss_fallbacks += 1
+            spans.count("fallback.dist_block_factor")
             ALf, rpf, r_s, _, p_pan, q_pan = run_panel_loop(
                 pan_all[perm.long()], r_in, 0, t, m, nb, preserve_l, 0, engine)
             r = int(r_s)
-            dist_block_factor.host_syncs += 1
+            spans.count("readback.dist_block_factor")
             perm = perm[rpf.long()]
             pos_of = torch.empty_like(pos_of)
             pos_of[perm.long()] = posv
@@ -199,12 +200,6 @@ def dist_block_factor(a: BitMatrix, mesh, preserve_l: bool, nb: int = 128,
             else "plain"
     return _dist_factor_impl(a.data, a.nrows, a.ncols, nb, window,
                              preserve_l, engine, mesh)
-
-
-# counted where they happen: read-backs from the device (one a panel, one
-# more on a miss) and panels redone at full height
-dist_block_factor.host_syncs = 0
-dist_block_factor.miss_fallbacks = 0
 
 
 def dist_ple(a: BitMatrix, mesh, nb: int = 128, window: int | None = None):

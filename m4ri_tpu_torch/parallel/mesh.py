@@ -33,17 +33,19 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
+from ..utils import spans
+
 __all__ = ["make_mesh", "make_multihost_mesh", "xor_allgather_reduce",
            "all_gather", "psum", "any_reduce", "init_group", "axis_size",
-           "axis_index", "host_staged_collectives"]
+           "axis_index"]
 
 # A collective that waits longer than this fails instead of hanging.
 COLLECTIVE_TIMEOUT = datetime.timedelta(seconds=300)
 
-# Collectives of a gloo group on card tensors, each staged through host
+# Collectives of a gloo group on card tensors are each staged through host
 # memory (gloo's CUDA support differs by collective and by release, so with
-# that backend every collective on card tensors takes the host path).
-host_staged_collectives = 0
+# that backend every collective on card tensors takes the host path), and
+# counted as ``host_staged_collectives`` (utils/spans.py).
 
 # The meshes made over the current world, by (shape, axis names): a mesh's
 # process groups (NCCL communicators hold device memory) are made once, and
@@ -188,14 +190,13 @@ def _gather_parts(x: torch.Tensor, mesh: DeviceMesh, axis: str) -> list:
     """Every rank's ``x`` along ``axis``, in axis order, on x's device.
     The list form of all_gather: newer releases deprecate
     all_gather_into_tensor for a call that older ones lack."""
-    global host_staged_collectives
     group = mesh.get_group(axis)
     staged = _staged(x, group)
     src = x.cpu() if staged else x.contiguous()
     parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, src, group=group)
     if staged:
-        host_staged_collectives += 1
+        spans.count("host_staged_collectives")
         parts = [p.to(x.device) for p in parts]
     return parts
 
@@ -221,13 +222,12 @@ def xor_allgather_reduce(x: torch.Tensor, mesh: DeviceMesh,
 
 def psum(x: torch.Tensor, mesh: DeviceMesh, axis: str) -> torch.Tensor:
     """Integer sum over the ranks of ``axis`` (a new tensor)."""
-    global host_staged_collectives
     group = mesh.get_group(axis)
     staged = _staged(x, group)
     out = x.cpu().clone() if staged else x.clone()
     dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
     if staged:
-        host_staged_collectives += 1
+        spans.count("host_staged_collectives")
         out = out.to(x.device)
     return out
 

@@ -3,8 +3,9 @@ JAX package's ``jax.vmap`` of the functions tests/test_vmap.py batches:
 ``mul_packed_data(..., allow_pallas=False)`` and ``block_factor(...,
 engine="xla")``, on the same numpy inputs, on the CPU.  Every element also
 equals the port's own single-matrix call.  The sweep reads back from the
-device once a panel for the whole batch (``host_syncs``).  Equality of packed
-words, P, Q and rank: tolerance 0."""
+device once a panel for the whole batch (the counter
+``readback.block_factor_batched``).  Equality of packed words, P, Q and rank:
+tolerance 0."""
 
 import numpy as np
 import pytest
@@ -24,6 +25,7 @@ from m4ri_tpu_torch.ops.mul import mul_packed_data
 
 import oracle
 from conftest import random_dense
+from m4ri_tpu_torch.utils.spans import counts
 from torch_port import words
 
 
@@ -112,7 +114,7 @@ def test_block_factor_batched_equals_jax_vmap(rng, case, preserve_l):
     jx, tx = _batch(mats)
     want = jax.vmap(lambda d: jblock_factor(JBitMatrix(d, n), preserve_l,
                                             engine="xla", **kw))(jx)
-    s0 = block_factor_batched.miss_fallbacks
+    s0 = counts().get("fallback.block_factor_batched", 0)
     for engine in ("plain", "hopper"):     # the wrappers' plain versions here
         got = block_factor_batched(tx, n, preserve_l, engine=engine, **kw)
         for w, g, part in zip(want, got, ("data", "P", "Q", "r")):
@@ -126,7 +128,7 @@ def test_block_factor_batched_equals_jax_vmap(rng, case, preserve_l):
         assert torch.equal(got[2][i], single[2])
         assert int(got[3][i]) == single[3] == oracle.rank(mats[i])
     if case == "one_misses":
-        assert block_factor_batched.miss_fallbacks > s0
+        assert counts().get("fallback.block_factor_batched", 0) > s0
 
 
 def test_rank_batched_as_test_vmap_rank(rng):
@@ -146,10 +148,10 @@ def test_one_read_back_a_panel_without_a_miss(rng):
     the batch size, and redoes nothing."""
     mats = np.stack([random_dense(rng, 100, 200) for _ in range(6)])
     tx = _batch(mats)[1]
-    s0, f0 = block_factor_batched.host_syncs, block_factor_batched.miss_fallbacks
+    s0, f0 = counts().get("readback.block_factor_batched", 0), counts().get("fallback.block_factor_batched", 0)
     block_factor_batched(tx, 200, True, nb=32)
-    assert block_factor_batched.host_syncs - s0 == _panels(100, 200, 32) == 7
-    assert block_factor_batched.miss_fallbacks == f0
+    assert counts().get("readback.block_factor_batched", 0) - s0 == _panels(100, 200, 32) == 7
+    assert counts().get("fallback.block_factor_batched", 0) == f0
 
 
 def test_a_miss_costs_one_more_read_back(rng):
@@ -158,10 +160,10 @@ def test_a_miss_costs_one_more_read_back(rng):
     mats, kw = _one_misses(rng)
     mats = np.concatenate([mats, mats[1:2]])    # two elements miss alike
     tx = _batch(mats)[1]
-    s0, f0 = block_factor_batched.host_syncs, block_factor_batched.miss_fallbacks
+    s0, f0 = counts().get("readback.block_factor_batched", 0), counts().get("fallback.block_factor_batched", 0)
     block_factor_batched(tx, 150, False, **kw)
-    syncs = block_factor_batched.host_syncs - s0
-    misses = block_factor_batched.miss_fallbacks - f0
+    syncs = counts().get("readback.block_factor_batched", 0) - s0
+    misses = counts().get("fallback.block_factor_batched", 0) - f0
     panels = _panels(200, 150, **kw)
     assert misses > 0 and misses % 2 == 0
     assert panels < syncs <= panels + misses // 2

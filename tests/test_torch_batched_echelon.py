@@ -16,7 +16,7 @@ import torch
 import m4ri_tpu_torch as mt
 from m4ri_tpu.core.bitmatrix import BitMatrix as JBitMatrix
 from m4ri_tpu.models import echelon as jech, ple as jple
-from m4ri_tpu_torch.models import batched
+from m4ri_tpu_torch.utils.spans import counts
 
 import oracle
 from torch_port import CASES, NB, cpu, jvmap, same, stacks
@@ -30,9 +30,9 @@ def test_ple_pluq_batched_equals_jax_vmap(rng, case, op):
     jx, tx = stacks(mats)
     nb = NB.get(case)
     want = jvmap(lambda d: getattr(jple, op)(JBitMatrix(d, n), nb=nb), jx)
-    f0 = batched.block_factor_batched.miss_fallbacks
+    f0 = counts().get("fallback.block_factor_batched", 0)
     got = getattr(mt, f"{op}_batched")(tx, n, nb=nb)
-    missed = batched.block_factor_batched.miss_fallbacks > f0
+    missed = counts().get("fallback.block_factor_batched", 0) > f0
     assert missed == (case == "misses")
     for w, g, part in zip(want, got, ("M", "P", "Q", "r")):
         same(w, g, f"{case} {op}: {part}")

@@ -17,7 +17,7 @@ import torch
 import m4ri_tpu_torch as mt
 from m4ri_tpu.core.bitmatrix import BitMatrix as JBitMatrix
 from m4ri_tpu.models import echelon as jech, ple as jple, solve as jsolve
-from m4ri_tpu_torch.models import batched
+from m4ri_tpu_torch.utils.spans import counts
 
 import oracle
 from conftest import random_dense
@@ -156,12 +156,14 @@ def test_no_read_back_beyond_the_sweeps(rng, entry):
     many waiting operators as the sweep counts read-backs, one a panel."""
     mats, rhs, bcols = _systems(rng, "wide")
     ncols, call = _calls(mats, rhs, bcols)[entry]
-    fn = batched.block_factor_batched
-    s0, f0 = fn.host_syncs, fn.miss_fallbacks
+    before = counts()
     with Waits() as waits:
         call()
-    assert fn.miss_fallbacks == f0
-    assert waits.n == fn.host_syncs - s0 == -(-ncols // 32)
+    after = counts()
+    name = "block_factor_batched"
+    assert after.get(f"fallback.{name}", 0) == before.get(f"fallback.{name}", 0)
+    assert waits.n == after.get(f"readback.{name}", 0) - \
+        before.get(f"readback.{name}", 0) == -(-ncols // 32)
 
 
 def test_heuristic_strategy_raises():

@@ -7,8 +7,8 @@ calls, the bit-faithful model of ``_mzd_top_echelonize_m4ri``
 (tests/ref_top_model.py) and the unique RREF.  The contract inputs are the
 echelon forms of tests/test_elimination.py; one batch lies off the contract
 (pivots pushed below the window).  Under a search window the sweep reads
-nothing back: ``Waits`` and ``host_syncs`` count 0.  Equality of packed
-words, P, Q and ranks: tolerance 0."""
+nothing back: ``Waits`` and the counter ``readback.block_factor_batched``
+count 0.  Equality of packed words, P, Q and ranks: tolerance 0."""
 
 import numpy as np
 import pytest
@@ -20,11 +20,18 @@ from m4ri_tpu.core.bitmatrix import BitMatrix as JBitMatrix
 from m4ri_tpu.models import echelon as jech, ple as jple
 from m4ri_tpu_torch.models import batched
 from m4ri_tpu_torch.utils.graycode import opt_k
+from m4ri_tpu_torch.utils.spans import counts
 
 import oracle
 from conftest import random_dense
 from ref_top_model import top_echelonize_model
 from torch_port import Waits, cpu, jvmap, same, stacks
+
+
+def _syncs_and_fallbacks():
+    now = counts()
+    return (now.get("readback.block_factor_batched", 0),
+            now.get("fallback.block_factor_batched", 0))
 
 
 def _ref(rng, m, n, d):
@@ -65,10 +72,10 @@ def test_top_echelonize_batched_on_contract_inputs(rng, case, k):
     _, m, n = mats.shape
     jx, tx = stacks(mats)
     want = jvmap(lambda d: jech.top_echelonize(JBitMatrix(d, n), k=k), jx)
-    s0 = batched.block_factor_batched.host_syncs
+    s0 = counts().get("readback.block_factor_batched", 0)
     with Waits() as waits:
         got = mt.top_echelonize_batched(tx, n, k=k)
-    assert waits.n == 0 and batched.block_factor_batched.host_syncs == s0
+    assert waits.n == 0 and counts().get("readback.block_factor_batched", 0) == s0
     same(want[0], got[0], f"{case} k={k}: E")
     same(want[1], got[1], f"{case} k={k}: r")
     assert got[1].dtype == torch.int32 and got[1].shape == (len(mats),)
@@ -131,12 +138,12 @@ def test_block_factor_batched_search_window_equals_jax_vmap(rng, search_window,
         engine="xla"), jx)
     fn = batched.block_factor_batched
     for engine in ("plain", "hopper"):     # the wrappers' plain versions here
-        s0, f0 = fn.host_syncs, fn.miss_fallbacks
+        s0, f0 = _syncs_and_fallbacks()
         with Waits() as waits:
             got = fn(tx, n, preserve_l, nb=32, search_window=search_window,
                      engine=engine)
         assert waits.n == 0
-        assert fn.host_syncs == s0 and fn.miss_fallbacks == f0
+        assert _syncs_and_fallbacks() == (s0, f0)
         for w, g, part in zip(want, got, ("data", "P", "Q", "r")):
             same(w, g, f"sw={search_window} {engine}: {part}")
     for i, a in enumerate(mats):

@@ -15,6 +15,7 @@ import torch
 
 from m4ri_tpu_torch.ops.hopper_mul import gf2_mul_hopper, gf2_mul_plain
 from m4ri_tpu_torch.ops.hopper_mul2 import gf2_mul_hopper_v2
+from m4ri_tpu_torch.utils.spans import counts
 
 pytestmark = pytest.mark.cuda
 
@@ -268,11 +269,12 @@ def test_schur_contraction_depths(card, k):
     launches of KW_MAX words."""
     c, lp, up = _schur_operands(card, 700, k, 50 * 32, 130, 9)
     want = hopper_schur.gf2_schur_update_plain(c.clone(), lp, up)
-    n = hopper_schur.gf2_schur_update_hopper.launches
+    name = "launch.gf2_schur_update_hopper"
+    n = counts().get(name, 0)
     hopper_schur.gf2_schur_update_hopper(c, lp, up, 130, 9, col_tile_skip=1)
     torch.cuda.synchronize()
     assert torch.equal(c, want)
-    assert hopper_schur.gf2_schur_update_hopper.launches - n == \
+    assert counts().get(name, 0) - n == \
         -(-k // (32 * hopper_schur.KW_MAX))
 
 
@@ -479,9 +481,9 @@ def test_factorization_equals_plain_engine(card):
     A = mt.from_packed(a, 1300)
     for pres in (False, True):
         want = mt.block_factor(A, preserve_l=pres, nb=256, engine="plain")
-        before = mt.block_factor.miss_fallbacks
+        before = counts().get("fallback.block_factor", 0)
         got = mt.block_factor(A, preserve_l=pres, nb=256)
-        assert mt.block_factor.miss_fallbacks > before
+        assert counts().get("fallback.block_factor", 0) > before
         for g, w in zip(got[:3], want[:3]):
             assert torch.equal(g, w)
         assert got[3] == want[3]
@@ -495,9 +497,9 @@ def test_factorization_of_70000_rows_with_a_deficient_window(card):
     a[600:3000] = 0
     A = mt.from_packed(a, 1024)
     want = mt.block_factor(A, preserve_l=True, engine="plain")
-    before = mt.block_factor.miss_fallbacks
+    before = counts().get("fallback.block_factor", 0)
     got = mt.block_factor(A, preserve_l=True)
-    assert mt.block_factor.miss_fallbacks > before
+    assert counts().get("fallback.block_factor", 0) > before
     assert hopper_panel.window_mode(70_000, 512) == "tall"
     for g, w in zip(got[:3], want[:3]):
         assert torch.equal(g, w)
@@ -676,6 +678,14 @@ def _sync_waits(caught):
                for w in caught)
 
 
+def _batched_reads():
+    """(read-backs, panels redone at full height) of the batched sweep so
+    far."""
+    now = counts()
+    return (now.get("readback.block_factor_batched", 0),
+            now.get("fallback.block_factor_batched", 0))
+
+
 def _stack(seed, B, rows, cols, dev):
     return torch.stack([_packed(seed + i, rows, cols, dev) for i in range(B)])
 
@@ -692,11 +702,11 @@ def _card_stack(seed, B, rows, cols, dev):
 
 def _batched_panel_kinds(fn):
     """fn's launches of the batched pivot loop by kind of kernel."""
-    by = hopper_panel.panel_loop_hopper_batched.by_kernel
-    before = dict(by)
+    key = "launch.panel_batched."
+    before = counts()
     fn()
-    return {k: n - before.get(k, 0) for k, n in by.items()
-            if n != before.get(k, 0)}
+    return {k[len(key):]: n - before.get(k, 0) for k, n in counts().items()
+            if k.startswith(key) and n != before.get(k, 0)}
 
 
 @pytest.mark.parametrize("sw", [0, 6, 42])
@@ -919,22 +929,23 @@ def test_batched_sweep_equals_single_block_factor(card, B, m, n, pres):
     data = _stack(180, B, m, n, card)
     data[1] = 0
     data[2, 5:m // 2] = 0
-    before = (hopper_panel.panel_loop_hopper_batched.launches,
-              hopper_post.panel_post_hopper_batched.launches)
+    names = ("launch.panel_loop_hopper_batched",
+             "launch.panel_post_hopper_batched")
+    before = [counts().get(k, 0) for k in names]
     got = block_factor_batched(data, n, pres)
     for i in range(B):
         want = mt.block_factor(mt.BitMatrix(data[i], n), pres)
         for g, w in zip(got[:3], want[:3]):
             assert torch.equal(g[i], w)
         assert int(got[3][i]) == want[3]
-    assert hopper_panel.panel_loop_hopper_batched.launches > before[0]
-    assert hopper_post.panel_post_hopper_batched.launches > before[1]
+    assert all(counts().get(k, 0) > n for k, n in zip(names, before))
 
 
 def test_batched_sweep_counts_every_read_back(card):
     """Every call that waits for the card in a batched factorization, as
     PyTorch's sync debug mode sees it, is one the sweep counts in
-    ``host_syncs``: one a panel, one more on a panel where some element
+    ``readback.block_factor_batched``: one a panel, one more on a panel
+    where some element
     missed, and none in the full-height fallbacks."""
     import warnings
 
@@ -945,7 +956,7 @@ def test_batched_sweep_counts_every_read_back(card):
     batched.block_factor_batched(data, n, True)       # kernels built
     torch.cuda.synchronize()
     fn = batched.block_factor_batched
-    s0, f0 = fn.host_syncs, fn.miss_fallbacks
+    s0, f0 = _batched_reads()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -955,8 +966,9 @@ def test_batched_sweep_counts_every_read_back(card):
             torch.cuda.set_sync_debug_mode("default")
     waits = _sync_waits(caught)
     panels = -(-n // batched.panel_widths(m, n)[0])
-    assert fn.miss_fallbacks > f0
-    assert waits == fn.host_syncs - s0
+    s1, f1 = _batched_reads()
+    assert f1 > f0
+    assert waits == s1 - s0
     assert panels < waits <= 2 * panels
 
 
@@ -1025,13 +1037,11 @@ def test_batched_solver_equals_single_on_the_card(card, entry):
     import warnings
 
     from m4ri_tpu_torch.core.bitmatrix import BitMatrix
-    from m4ri_tpu_torch.models import batched
     calls, B = _batched_solver_calls(card)
     batched_fn, single_fn = calls[entry]
     batched_fn()                            # kernels built
     torch.cuda.synchronize()
-    fn = batched.block_factor_batched
-    s0 = fn.host_syncs
+    s0 = _batched_reads()[0]
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -1040,7 +1050,7 @@ def test_batched_solver_equals_single_on_the_card(card, entry):
         finally:
             torch.cuda.set_sync_debug_mode("default")
     waits = _sync_waits(caught)
-    assert waits == fn.host_syncs - s0
+    assert waits == _batched_reads()[0] - s0
     got = got if isinstance(got, tuple) else (got,)
     for part in got:
         assert part.device.type == "cuda"
@@ -1112,7 +1122,6 @@ def test_batched_top_and_naive_equal_the_cpu_port(card, entry):
     import warnings
 
     import m4ri_tpu_torch as mt
-    from m4ri_tpu_torch.models import batched
     B, m, n = 4, 600, 900
     a = _stack(195, B, m, n, card)
     a[1] = 0
@@ -1124,9 +1133,8 @@ def test_batched_top_and_naive_equal_the_cpu_port(card, entry):
     call = _top_and_naive_calls(a, sq)[entry]
     call(a)                                             # kernels built
     torch.cuda.synchronize()
-    fn = batched.block_factor_batched
-    s0 = fn.host_syncs
-    launched = hopper_panel.panel_loop_hopper_batched.launches
+    s0 = _batched_reads()[0]
+    launched = counts().get("launch.panel_loop_hopper_batched", 0)
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -1134,9 +1142,9 @@ def test_batched_top_and_naive_equal_the_cpu_port(card, entry):
             got = call(a)
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    assert _sync_waits(caught) == 0 and fn.host_syncs == s0
+    assert _sync_waits(caught) == 0 and _batched_reads()[0] == s0
     if entry.startswith("top"):
-        assert hopper_panel.panel_loop_hopper_batched.launches > launched
+        assert counts().get("launch.panel_loop_hopper_batched", 0) > launched
     want = call(a.cpu())
     for g, w in zip(got, want):
         assert g.device.type == "cuda" and torch.equal(g.cpu(), w)

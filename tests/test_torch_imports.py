@@ -37,7 +37,7 @@ def test_the_walk_sees_the_port():
     assert {"bitmatrix.py", "mul.py", "strassen.py", "hopper_mul.py",
             "hopper_mul2.py", "_build.py", "chip_smoke.py", "hopper_schur.py",
             "hopper_panel.py", "hopper_post.py", "ple.py", "echelon.py",
-            "split_ple.py", "graycode.py", "bitops.py", "permutation.py",
+            "spans.py", "graycode.py", "bitops.py", "permutation.py",
             "triangular.py", "solve.py", "split_solve.py",
             "tune_cutoffs.py", "m4rm.py", "djb.py", "io.py", "compat.py",
             "build.py", "mesh.py", "dist_mul.py", "dist_echelon.py",

@@ -17,6 +17,7 @@ from m4ri_tpu_torch.ops.hopper_mul2 import gf2_mul_hopper_v2
 
 import oracle
 from conftest import random_dense
+from m4ri_tpu_torch.utils.spans import counts
 from torch_port import assert_same, both
 
 
@@ -124,7 +125,8 @@ def test_cpu_tensors_launch_nothing():
     """A launch is counted where a kernel is launched and nowhere else."""
     a = torch.zeros((8, 2), dtype=torch.int32)
     b = torch.zeros((64, 3), dtype=torch.int32)
-    n1, n2 = gf2_mul_hopper.launches, gf2_mul_hopper_v2.launches
+    before = counts()
     gf2_mul_hopper(a, b)
     gf2_mul_hopper_v2(a, b)
-    assert (gf2_mul_hopper.launches, gf2_mul_hopper_v2.launches) == (n1, n2)
+    for name in ("launch.gf2_mul_hopper", "launch.gf2_mul_hopper_v2"):
+        assert counts().get(name, 0) == before.get(name, 0)

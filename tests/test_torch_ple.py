@@ -19,6 +19,7 @@ from m4ri_tpu.utils.config import get_config as jget_config
 from m4ri_tpu_torch.models import ple as tple
 from m4ri_tpu_torch.utils import config as tconfig
 from m4ri_tpu_torch.utils.rng import GlibcRandom, reference_random_data
+from m4ri_tpu_torch.utils.spans import counts
 
 import oracle
 from conftest import random_dense
@@ -88,25 +89,25 @@ def test_block_factor_equals_jax(rng, case, preserve_l, engine):
     J, T = both(a)
     keep = T.data.clone()
     want = jple.block_factor(J, preserve_l=preserve_l, engine="xla", **kw)
-    misses = mt.block_factor.miss_fallbacks
+    misses = counts().get("fallback.block_factor", 0)
     got = mt.block_factor(T, preserve_l=preserve_l, engine=engine, **kw)
     _assert_factor_equal(want, got, f"{case} {engine}")
     assert torch.equal(T.data, keep), "the caller's matrix was written to"
     assert got[3] == oracle.rank(a) or case == "search_window"
     if case == "zeroed_band":
-        assert mt.block_factor.miss_fallbacks > misses
+        assert counts().get("fallback.block_factor", 0) > misses
     if case == "search_window":       # the miss check is off there
-        assert mt.block_factor.miss_fallbacks == misses
+        assert counts().get("fallback.block_factor", 0) == misses
 
 
 def test_block_factor_counts_its_read_backs(rng):
     A = mt.from_numpy(_zeroed_band(rng), device="cpu")
-    syncs, misses = mt.block_factor.host_syncs, mt.block_factor.miss_fallbacks
+    syncs, misses = counts().get("readback.block_factor", 0), counts().get("fallback.block_factor", 0)
     mt.block_factor(A, preserve_l=True, nb=32, window=32)
     panels = 96 // 32
-    missed = mt.block_factor.miss_fallbacks - misses
+    missed = counts().get("fallback.block_factor", 0) - misses
     assert 0 < missed <= panels
-    assert mt.block_factor.host_syncs - syncs == panels + missed
+    assert counts().get("readback.block_factor", 0) - syncs == panels + missed
 
 
 def test_block_factor_default_engine_and_bad_engine(rng):

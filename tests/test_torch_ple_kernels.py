@@ -30,6 +30,7 @@ from m4ri_tpu_torch.ops.hopper_schur import (TILE_ROWS, TILE_WORDS,
 
 import oracle
 from conftest import random_dense
+from m4ri_tpu_torch.utils.spans import counts
 from torch_port import assert_same, both, words
 
 
@@ -387,14 +388,14 @@ def test_cpu_tensors_launch_nothing(rng):
     """A launch is counted where a kernel is launched and nowhere else."""
     fns = (gf2_schur_update_hopper, gf2_schur_update_dyn_hopper,
            panel_loop_hopper, panel_post_hopper)
-    before = [f.launches for f in fns]
+    before = [counts().get(f"launch.{f.__name__}", 0) for f in fns]
     A = mt.from_numpy(random_dense(rng, 150, 130), device="cpu")
     mt.block_factor(A, preserve_l=True, nb=32, engine="hopper")
     c = torch.zeros((TILE_ROWS, TILE_WORDS), dtype=torch.int32)
     gf2_schur_update_dyn_hopper(
         c, torch.zeros((TILE_ROWS, 1), dtype=torch.int32),
         torch.zeros((32, TILE_WORDS), dtype=torch.int32), 0, 0)
-    assert [f.launches for f in fns] == before
+    assert [counts().get(f"launch.{f.__name__}", 0) for f in fns] == before
 
 
 def test_schur_plain_is_in_place(rng):

@@ -88,13 +88,15 @@ if not torch.cuda.is_available():
 import m4ri_tpu_torch as m4
 from m4ri_tpu_torch.benches.peaks import (PEAK_ALU32_OPS_PER_S,
                                           PEAK_B1_OPS_PER_S, PEAK_BYTES_PER_S,
-                                          schur_bound)
+                                          PEAK_SMEM_WORDS_PER_S, schur_bound)
 from m4ri_tpu_torch.benches.probe_mma import probe as probe_mma
 from m4ri_tpu_torch.benches.split_batched import capture_panel
+from m4ri_tpu_torch.benches.split_batched import trace as device_trace
 from m4ri_tpu_torch.core import permutation as perm_mod
 from m4ri_tpu_torch.core.bitmatrix import BitMatrix, mask_padding
 from m4ri_tpu_torch.models import ple as ple_mod
-from m4ri_tpu_torch.ops import _build, hopper_panel, hopper_post, hopper_schur
+from m4ri_tpu_torch.ops import (_build, hopper_panel, hopper_post, hopper_schur,
+                                hopper_trinv)
 from m4ri_tpu_torch.ops.hopper_mul import gf2_mul_hopper, gf2_mul_plain
 from m4ri_tpu_torch.ops.hopper_mul2 import gf2_mul_hopper_v2
 from m4ri_tpu_torch.ops.hopper_panel import panel_loop_hopper, panel_loop_plain
@@ -153,10 +155,17 @@ KERNELS = {
         fn=hopper_schur.gf2_schur_update_batched_hopper,
         source="m4ri_tpu_torch/csrc/gf2_schur_hopper.cu",
         replaces="m4ri_tpu/ops/pallas_schur.py:255"),
+    # the sweeps' U_piv^{-1} and L11^{-1}, the TRSM / TRTRI base blocks
+    "unit_tri_inv_hopper": dict(
+        fn=hopper_trinv.unit_tri_inv_hopper,
+        source="m4ri_tpu_torch/csrc/gf2_trinv_hopper.cu",
+        replaces="none: the nilpotent series (m4ri_tpu/models/ple.py:64, "
+                 "_unit_upper_inv), no pallas_call"),
 }
 GEMMS = ("gf2_mul_hopper", "gf2_mul_hopper_v2")
 SOURCES = ["gf2_gemm_hopper", "gf2_schur_hopper",
-           "gf2_panel_hopper", "gf2_post_hopper", "probe_mma"]
+           "gf2_panel_hopper", "gf2_post_hopper", "gf2_trinv_hopper",
+           "probe_mma"]
 # the PLE panel's U rows at n=16384 (nb=512) and n=32768 (nb=1024): most of
 # gf2_mul_hopper's launches
 U_ROW_SHAPES = [(512, 512, 16384), (1024, 1024, 32768)]
@@ -701,6 +710,97 @@ def phase_post_kernel(rng) -> dict:
     return report
 
 
+# (batch, n) of the inverse on the main paths: McEliece's T and L11^{-1}
+# (nb = 512, 1024 keys), the TRSM bases of its 768-column solves (384), the
+# single sweep's wide panel (nb = 1024)
+TRINV_SHAPES = [(1024, 512), (1024, 384), (1, 1024)]
+
+
+def trinv_bound(batch: int, n: int, chain_floor_ms: float) -> dict:
+    """Least time for ``batch`` inverses of n x n, the largest of: N's
+    strict triangle read once (the words the kernel reads: 32 (K + 1) rows
+    of word K) and S written once; the shared-memory loads of the update, a
+    word for each (row, contributing row, word of the row that can be
+    nonzero), 1024 nw (nw^2 - 1) / 6 ~ n^3/192 a matrix; the same count of
+    32-bit and-XORs; and the chain of n/32 dependent block steps, measured
+    by the probe at the launch's grid (``chain_floor_ms``)."""
+    nw = n // 32
+    terms = {
+        "bytes": 4 * batch * (16 * nw * (nw + 1) + n * nw)
+        / PEAK_BYTES_PER_S * 1e3,
+        "smem_loads": batch * 1024 * nw * (nw * nw - 1) / 6
+        / PEAK_SMEM_WORDS_PER_S * 1e3,
+        "operations": batch * 1024 * nw * (nw * nw - 1) / 6
+        / PEAK_ALU32_OPS_PER_S * 1e3,
+        "chain": chain_floor_ms}
+    by = max(terms, key=terms.get)
+    return {"bound_ms": terms[by], "bound_by": by,
+            **{f"{k}_bound_ms": v for k, v in terms.items()}}
+
+
+def phase_trinv_kernel(rng) -> dict:
+    """The unit-triangular inverse against its plain version, upper and
+    lower, with N zero, the full strict triangle and random in one batch,
+    at the main paths' shapes, 4096 NIST-sized ones and a ragged width;
+    then its time at the main paths' shapes beside its bound and the time
+    of the float32 series the sweeps took before it.  The kernel's device
+    time is compared with the bound; the chain term of the bound is the
+    probe's device time, each from the device trace."""
+    name, bad, checked, shapes = "unit_tri_inv_hopper", 0, [], []
+    fn, plain = hopper_trinv.unit_tri_inv_hopper, hopper_trinv.unit_tri_inv_plain
+    for batch, n in [*TRINV_SHAPES, (2 ** 12, 32), (5, 100)]:
+        w = (n + 31) // 32
+        nil = packed(rng, batch * n, n).view(batch, n, w)
+        i = np.arange(n)
+        for upper in (True, False):
+            if batch >= 3:      # N zero, N the full strict triangle
+                full = (i[None, :] > i[:, None]) if upper else \
+                    (i[None, :] < i[:, None])
+                nil[0] = 0
+                nil[1] = m4.from_numpy(full.astype(np.uint8)).data
+            got = fn(nil, upper)
+            torch.cuda.synchronize()
+            want = plain(nil, upper)
+            bad |= int(not torch.equal(got, want))
+            checked.append(f"{batch} x {n}^2 upper={upper}")
+    check(bad == 0, f"{name} disagrees with its plain version")
+    for batch, n in TRINV_SHAPES:
+        nil = packed(rng, batch * n, n).view(batch, n, n // 32)
+        eye = torch.eye(n, dtype=torch.int8, device=DEV)
+        for upper in (True, False):
+            t = time_ms(lambda: fn(nil, upper))
+            # the kernel's own time, without the wrapper's host time
+            dev_ms = device_trace(lambda: fn(nil, upper), calls=11)["device_ms"]
+            bits = (hopper_trinv.unpack_bits(nil, torch.int8)
+                    * hopper_trinv._strict(n, upper, DEV))
+            ts = time_ms(lambda: hopper_trinv._unit_upper_inv(
+                bits, eye, hopper_trinv.series_steps(n)), runs=3, warmup=1)
+            tp = time_ms(lambda: plain(nil, upper), runs=3, warmup=1)
+            del bits
+            strips, sw, threads = hopper_trinv.trinv_plan(
+                batch, n, torch.cuda.get_device_properties(0).multi_processor_count)
+            # the chain alone, on the launch's grid
+            floor = time_ms(lambda: hopper_trinv.chain_floor(batch, n))
+            floor_dev = device_trace(lambda: hopper_trinv.chain_floor(batch, n),
+                                     calls=11)["device_ms"]
+            shapes.append({"batch": batch, "n": n, "upper": upper,
+                           "strips": strips, "strip_words": sw,
+                           "threads": threads, "ms": t["median"],
+                           "ms_min": t["min"], "ms_max": t["max"],
+                           "runs": t["runs"], "device_ms": dev_ms,
+                           "series_ms": ts["median"],
+                           "plain_ms": tp["median"],
+                           "chain_steps": n // 32,
+                           "chain_floor_event_ms": floor["median"],
+                           **trinv_bound(batch, n, floor_dev)})
+    report = {name: kernel_entry(name, bad, shapes[0],
+                                 device_ms=shapes[0]["device_ms"],
+                                 timed_at=list(TRINV_SHAPES[0]),
+                                 checked=checked, shapes=shapes)}
+    emit("kernels_trinv", kernels=list(report.values()))
+    return report
+
+
 def phase_mul_4096(seed: int) -> dict:
     n = 4096
     rng = np.random.default_rng(seed)
@@ -864,7 +964,7 @@ def phase_naive_and_golden(seed: int) -> None:
 
 FACTOR_KERNELS = ("panel_loop_hopper", "panel_post_hopper",
                   "gf2_schur_update_hopper", "gf2_schur_update_dyn_hopper",
-                  "gf2_mul_hopper")
+                  "gf2_mul_hopper", "unit_tri_inv_hopper")
 
 
 def sync_waits(caught) -> int:
@@ -938,13 +1038,14 @@ def phase_ple_16384(seed: int) -> dict:
         add_counts(total, launched)
         want = m4.block_factor(A, preserve_l=pres, engine="plain")
         same_factors(got, want, f"block_factor 16384 preserve_l={pres}")
-        # the last panel leaves no column to update: its Schur call
-        # launches nothing
+        # the last panel leaves no column to update: no U rows, no Schur
+        # update; a T a panel and an L11^{-1} a panel but the last
         check(launched == {"panel_loop_hopper": panels + misses,
                            "panel_post_hopper": panels,
                            "gf2_schur_update_hopper": panels - 1,
                            "gf2_schur_update_dyn_hopper": 0,
-                           "gf2_mul_hopper": panels},
+                           "gf2_mul_hopper": panels - 1,
+                           "unit_tri_inv_hopper": 2 * panels - 1},
               f"block_factor 16384 launched {launched} over {panels} panels")
         check(syncs == panels + misses, f"{syncs} read-backs, {panels} panels")
         per_run[f"preserve_l={pres}"] = {"launches": launched, "rank": got[3],
@@ -969,7 +1070,7 @@ def phase_ple_16384(seed: int) -> dict:
         lambda: factor_counted(A, True), schur_dyn=True)
     add_counts(total, launched)
     same_factors(got_dyn, want, "block_factor 16384 with schur_dyn")
-    check(launched["gf2_schur_update_dyn_hopper"] == panels
+    check(launched["gf2_schur_update_dyn_hopper"] == panels - 1
           and launched["gf2_schur_update_hopper"] == 0,
           f"with schur_dyn the sweep launched {launched}")
     per_run["schur_dyn"] = {"launches": launched}
@@ -1090,7 +1191,8 @@ def phase_ple_32768(seed: int) -> dict:
     check(launched["panel_loop_hopper"] == panels + misses
           and launched["panel_post_hopper"] == panels
           and launched["gf2_schur_update_hopper"] == panels - 1
-          and launched["gf2_mul_hopper"] == panels,
+          and launched["gf2_mul_hopper"] == panels - 1
+          and launched["unit_tri_inv_hopper"] == 2 * panels - 1,
           f"ple 32768 launched {launched} over {panels} panels")
     t0 = time.perf_counter()
     want = m4.block_factor(A, preserve_l=True, engine="plain")
@@ -2592,7 +2694,8 @@ def phase_batched_rank_nist(seed: int) -> dict:
           f"NIST ranks: {int((got != want).sum())} of {B} differ from numpy")
     check(launched["panel_loop_hopper_batched"] == 1
           and launched["panel_post_hopper_batched"] == 1
-          and launched["gf2_schur_update_batched_hopper"] == 0,
+          and launched["gf2_schur_update_batched_hopper"] == 0
+          and launched["unit_tri_inv_hopper"] == 1,      # T, a warp a matrix
           f"rank_batched 32x32 launched {batch_counts()}")
     check(syncs == 1 and misses == 0, f"{syncs} read-backs, {misses} fallbacks")
     kinds = panel_kinds()
@@ -3219,6 +3322,7 @@ def main() -> int:
         report.update(phase_schur_kernels(rng))
         report.update(phase_panel_kernel(rng))
         report.update(phase_post_kernel(rng))
+        report.update(phase_trinv_kernel(rng))
         report.update(phase_batched_kernels(seed))
         launches = {name: 0 for name in KERNELS}
         for got in (phase_mul_4096(seed), phase_mul_routes(seed),

@@ -15,6 +15,9 @@ PEAK_B1_OPS_PER_S = 8 * 1979e12
 # 32-bit operations outside the tensor cores (an XOR of two words is one):
 # the data sheet's float32 rate, 67 TFLOP/s, for want of an integer one
 PEAK_ALU32_OPS_PER_S = 67e12
+# shared-memory loads of a 4-byte word: 32 banks a clock an SM, 132 SMs at
+# the 1,980 MHz boost clock
+PEAK_SMEM_WORDS_PER_S = 32 * 132 * 1.98e9
 
 
 def schur_bound(m: int, k: int, nw: int, r0: int, c0w: int, skip_words: int = 0) -> dict:

@@ -21,8 +21,10 @@ Python ints.  So the batched sweep here is ``_block_factor_impl``
   the window's row permutation, the panel write-back and the P/Q commit go
   back with scatters masked by ``slot < rank_panel[b]`` (the form of the JAX
   package's ``dynamic_update_slice``);
-- the glue's nb x nb products are batched float32 products under
-  ``exact_float32`` (the JAX package computes them outside any kernel too);
+- the glue's nb x nb products by the one-hot pivot-column matrix are
+  gathers, and its two unit-triangular inverses a panel (the pivot block
+  U_piv for the elimination's operands, L11 for the U rows) are one batched
+  launch each on packed words (``unit_tri_inv_hopper``);
 - the pivot loop, the below-window elimination and the U rows / trailing
   update run as one batched launch each (``panel_loop_hopper_batched``,
   ``panel_post_hopper_batched``, ``gf2_schur_update_batched_hopper``);
@@ -53,12 +55,10 @@ from ..ops.hopper_panel import panel_loop_batched_plain, panel_loop_hopper_batch
 from ..ops.hopper_post import panel_post_batched_plain, panel_post_hopper_batched
 from ..ops.hopper_schur import (gf2_schur_update_batched_hopper,
                                 gf2_schur_update_plain)
-from ..ops.mul import pack_bits, unpack_bits
 from ..utils import spans
 from ..utils.config import WORD_BITS, get_config
-from .ple import (ENGINES, _round_up, _row_ge_mask,
-                  _unit_upper_inv, panel_consts, panel_widths, post_operands,
-                  run_panel_loop)
+from .ple import (ENGINES, _round_up, _row_ge_mask, panel_widths,
+                  post_operands, run_panel_loop, tri_inv)
 
 __all__ = ["mul_packed_batched", "block_factor_batched", "rank_batched",
            "ple_batched", "pluq_batched"]
@@ -135,8 +135,8 @@ def _sweep(data: torch.Tensor, m: int, n: int, nb: int, preserve_l: bool,
     A[:, : data.shape[1], : data.shape[2]] = data
     P = torch.arange(m_pad, dtype=torch.int32, device=dev).repeat(B, 1)
     Q = torch.arange(n_pad, dtype=torch.int32, device=dev).repeat(B, 1)
-    consts = panel_consts(nb, dev)
-    slotv, eye_nb, _, steps = consts
+    slotv = torch.arange(nb, dtype=torch.int32, device=dev)
+    inverse = tri_inv(engine)
     wv = torch.arange(W, dtype=torch.int32, device=dev)
     loop = panel_loop_hopper_batched if hopper else panel_loop_batched_plain
     post = panel_post_hopper_batched if hopper else panel_post_batched_plain
@@ -165,8 +165,8 @@ def _sweep(data: torch.Tensor, m: int, n: int, nb: int, preserve_l: bool,
             with spans.span("panel.operands"):
                 live = slotv[None, :] < (r_f - r_in)[:, None]  # [B, nb]
                 m_small, wmat, cmb = post_operands(
-                    ALw[:, :nb], live, q_f, t * nb, n, preserve_l, consts,
-                    not search_window)
+                    ALw[:, :nb], live, q_f, t * nb, n, preserve_l, slotv,
+                    not search_window, engine)
             with spans.span("panel.post"):
                 vw_full, lamw_full, miss = post(Xw, m_small, wmat, cmb,
                                                 r_in + W, m)
@@ -227,8 +227,7 @@ def _sweep(data: torch.Tensor, m: int, n: int, nb: int, preserve_l: bool,
             # ---- U rows: S_b * A_b[r_b : r_b + nb], words from c0n on ----
             with spans.span("panel.u_rows"):
                 c0n = (t + 1) * nbw
-                l11 = unpack_bits(_rows(Lpw, sl), torch.int8)
-                s_pk = pack_bits(_unit_upper_inv(l11, eye_nb, steps))
+                s_pk = inverse(_rows(Lpw, sl), False)   # L11^{-1}, packed
                 a_block = _rows(A, sl)
                 a_block[:, :, :c0n] = 0
                 up = schur(torch.zeros_like(a_block), s_pk, a_block, 0,

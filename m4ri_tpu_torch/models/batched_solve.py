@@ -17,7 +17,8 @@ beyond ``block_factor_batched``'s one read-back a panel:
 - the TRSM / TRTRI recursion is the single one (models/triangular.py) on
   stacks, on the same static splits: each block product is one
   ``mul_packed_batched`` call (on the card the batched Schur kernel), and
-  each base block is inverted by the nilpotent series over ``[B, n, n]``;
+  the base blocks of a stack are inverted by one launch of
+  ``unit_tri_inv_hopper`` on their packed words;
 - ``top_echelonize_batched`` runs the sweep with a search window, and the
   naive engines run models/echelon.py's column step with its batch axis:
   neither reads anything back.

@@ -10,16 +10,19 @@ factorization with tensor-core Schur updates*:
   are reproduced exactly) runs as one sequential loop on a W-row *window* at
   positions r..r+W (ops/hopper_panel.py).  Rows below the window are
   eliminated afterwards in one batched step (ops/hopper_post.py; multipliers
-  lambda = X_piv @ U_piv^{-1} via the nilpotent series).  Exactness: every
-  window candidate precedes every outside row in position order, so the
-  window pivot *is* the canonical pivot whenever the window has one; the
-  only failure mode, a column where the window has no candidate but an
-  outside row does, is detected exactly from the batched residuals and the
-  panel is then redone with a full-height window.
-- The panel's unit-lower transform L11 is inverted with the nilpotent series
-  (log2(NB) small products) instead of sequential substitution, giving the
-  panel's U rows in one packed multiply (ops/hopper_mul.py); the trailing
-  Schur update is one fused in-place GF(2) product (ops/hopper_schur.py).
+  lambda = X_piv @ U_piv^{-1}).  Exactness: every window candidate
+  precedes every outside row in position order, so the window pivot *is*
+  the canonical pivot whenever the window has one; the only failure mode,
+  a column where the window has no candidate but an outside row does, is
+  detected exactly from the batched residuals and the panel is then redone
+  with a full-height window.
+- The panel's unit-lower transform L11 and the pivot block U_piv are
+  inverted on packed words (ops/hopper_trinv.py: one blocked
+  back-substitution an inverse, where the JAX package takes the nilpotent
+  series), giving the panel's U rows in one packed multiply
+  (ops/hopper_mul.py); the products by the one-hot pivot-column matrix are
+  gathers.  The trailing Schur update is one fused in-place GF(2) product
+  (ops/hopper_schur.py).
 - Like the reference, the in-place result preserves L in the pivot columns
   (elimination touches only columns right of the pivot, cf.
   `mzd_row_add_offset(A, l, row, j+1)` in ple.c:245), then `_compress_l_impl`
@@ -44,6 +47,9 @@ from ..core.transpose import transpose
 from ..ops.hopper_mul import gf2_mul_hopper, gf2_mul_plain
 from ..ops.hopper_panel import panel_loop_hopper, panel_loop_plain
 from ..ops.hopper_post import panel_post_hopper, panel_post_plain
+# the series stays importable from here for parallel/ (dist_ple, dist_echelon)
+from ..ops.hopper_trinv import _unit_upper_inv  # noqa: F401
+from ..ops.hopper_trinv import unit_tri_inv_hopper, unit_tri_inv_plain
 from ..ops.hopper_schur import (TILE_ROWS, TILE_WORDS,
                                 gf2_schur_update_dyn_hopper,
                                 gf2_schur_update_hopper,
@@ -70,69 +76,78 @@ def _dot2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (prod.to(torch.int32) & 1).to(torch.int8)
 
 
-def _unit_upper_inv(nilp: torch.Tensor, eye: torch.Tensor, steps: int):
-    """(I + N)^{-1} for nilpotent N via the product form
-    prod_i (I + N^(2^i)): log-depth small products.  0/1 int8 in and out;
-    inside, the matrices stay float32 (XOR of 0/1 values is their sum mod 2,
-    and sums below 2**24 are exact), so a step is two products and three
-    elementwise passes and nothing is converted back and forth."""
-    p = nilp.to(torch.float32)
-    s = torch.fmod(eye.to(torch.float32) + p, 2)
-    with exact_float32():
-        for _ in range(steps):
-            p = torch.fmod(p @ p, 2)
-            s = torch.fmod(s + p @ s, 2)
-    return s.to(torch.int8)
-
-
-def panel_consts(nb: int, device):
-    """The sweep's constant small tensors, made once a sweep: the slot
-    indices, the nb x nb identity and strict upper triangle (int8), and the
-    number of squarings of ``_unit_upper_inv``."""
-    slotv = torch.arange(nb, dtype=torch.int32, device=device)
-    eye_nb = torch.eye(nb, dtype=torch.int8, device=device)
-    upper = (slotv[None, :] > slotv[:, None]).to(torch.int8)
-    return slotv, eye_nb, upper, max(0, (nb - 1).bit_length() - 1)
+def tri_inv(engine: str):
+    """The sweep's unit-triangular inverse: the kernel's wrapper (the plain
+    version on a CPU tensor), or the plain version everywhere."""
+    return unit_tri_inv_plain if engine == "plain" else unit_tri_inv_hopper
 
 
 def post_operands(Pw: torch.Tensor, live: torch.Tensor, qloc: torch.Tensor,
-                  col0: int, n: int, preserve_l: bool, consts,
-                  miss_check: bool = True):
+                  col0: int, n: int, preserve_l: bool, slotv: torch.Tensor,
+                  miss_check: bool = True, engine: str = "hopper"):
     """The below-window elimination's small operands from a window's
     pivot-slot rows, for one window or a batch of them (a leading batch
-    axis ``...`` passes through): ``Pw`` [..., nb, 2nb/32] (the fused rows
+    axis passes through): ``Pw`` [..., nb, 2nb/32] (the fused rows
     [panel | L] at the pivot slots), ``live`` bool [..., nb] (slot s holds a
-    pivot), ``qloc`` [..., nb] (its panel column); ``consts`` is
-    ``panel_consts(nb, ...)``.  Returns int8 (m_small = E^T T [..., nb, nb],
+    pivot), ``qloc`` [..., nb] (its panel column); ``slotv`` the slot
+    indices 0..nb-1 (int32).  Returns int8 (m_small = E^T T [..., nb, nb],
     wmat [..., nb, nb], colmask bits [..., nb]): E the one-hot pivot-column
     rows, T the inverse of U restricted to its pivot columns, the column
     mask the valid columns (panel column ``col0`` on, below ``n``) that hold
-    no pivot, or none without ``miss_check``."""
-    nbw = Pw.shape[-2] // WORD_BITS
-    slotv, eye_nb, upper, steps = consts
-    live8 = live.to(torch.int8)[..., None]
-    cloc = torch.where(live, qloc, 0)
-    urows = unpack_bits(Pw[..., :nbw], torch.int8) * live8
-    # one-hot pivot-column rows: E[s] = e_{cloc[s]}
-    E = ((cloc[..., None] == slotv) & live[..., None]).to(torch.int8)
-    Et = E.transpose(-1, -2)
+    no pivot, or none without ``miss_check``.
+
+    Every product by E is a selection: U E^T takes U's columns at the pivot
+    columns, E^T T puts T's rows at them, L E puts L's columns there; so
+    they are gathers on 0/1 bytes, and T is one call of the unit-triangular
+    inverse (``tri_inv(engine)``) on packed words."""
+    single = Pw.dim() == 2
+    if single:
+        Pw, live, qloc = Pw[None], live[None], qloc[None]
+    B, nb = Pw.shape[:2]
+    nbw = nb // WORD_BITS
+    live8 = live.to(torch.int8)
+    # pivot column of each slot (0 where it holds none: masked below); inv[c]
+    # the slot whose pivot column is c, else nb
+    cloc = torch.where(live, qloc, 0).long()
+    inv = torch.full((B, nb + 1), nb, dtype=torch.int64, device=Pw.device)
+    inv.scatter_(1, torch.where(live, cloc, nb), slotv.long().expand(B, -1))
+    inv = inv[:, :nb]
+    nopiv = inv == nb                        # columns that hold no pivot
+    # the masks by slot and by column act on the packed words, a word for
+    # 32 bytes of the unpacked operands
+    u_words = torch.where(live[..., None], Pw[..., :nbw], 0)
     if preserve_l:
         # the in-place pivot rows carry their own L multipliers at the
-        # *earlier* pivot columns; clear them to get the clean U rows
-        Lbits = unpack_bits(Pw[..., nbw:], torch.int8)
-        u_clean = (urows ^ _dot2(Lbits, E)) * live8
-    else:
-        u_clean = urows
-    # U restricted to its pivot columns, in slot space: unit upper tri
-    T = _unit_upper_inv(_dot2(u_clean, Et) * upper, eye_nb, steps)
-    # multipliers for every row below the window: lambda = X (E^T T);
+        # *earlier* pivot columns; clear them (L E: L's columns moved to the
+        # pivot columns) to get the clean U rows
+        le = unpack_bits(Pw[..., nbw:], torch.int8).gather(
+            2, inv.clamp(max=nb - 1)[:, None, :].expand(-1, nb, -1))
+        pivots = pack_bits((~nopiv).to(torch.int8))[:, None, :]
+        u_words = torch.where(live[..., None],
+                              u_words ^ (pack_bits(le) & pivots), 0)
+        del le
+    u_clean = unpack_bits(u_words, torch.int8)
+    # U restricted to its pivot columns, in slot space (U E^T): unit upper
+    # triangular (the inverse reads its strict upper triangle only); T its
+    # inverse
+    upiv = u_clean.gather(2, cloc[:, None, :].expand(-1, nb, -1))
+    T = tri_inv(engine)(pack_bits(upiv) & pack_bits(live8)[:, None, :], True)
+    del upiv
+    # multipliers for every row below the window: lambda = X (E^T T), the
+    # row of E^T T at pivot column c T's row inv[c], zero elsewhere;
     # eliminated panel values v = X ^ lambda wmat (preserve_l re-places
     # lambda at the pivot columns, the reference's in-place L layout)
-    wmat = (u_clean ^ E) if preserve_l else u_clean
+    tz = torch.nn.functional.pad(T, (0, 0, 0, 1))
+    m_small = unpack_bits(tz.gather(1, inv[:, :, None].expand(-1, -1, nbw)),
+                          torch.int8)
+    wmat = u_clean
+    if preserve_l:                           # u_clean ^ E, in place
+        at = cloc[..., None]
+        wmat.scatter_(2, at, wmat.gather(2, at) ^ live8[..., None])
     validcol = (col0 + slotv) < n
-    cmb = (~E.any(dim=-2) & validcol) if miss_check else \
-        torch.zeros_like(live)
-    return _dot2(Et, T), wmat, cmb.to(torch.int8)
+    cmb = (nopiv & validcol) if miss_check else torch.zeros_like(live)
+    out = (m_small, wmat, cmb.to(torch.int8))
+    return tuple(x[0] for x in out) if single else out
 
 
 def run_panel_loop(panel_words: torch.Tensor, r, base: int, t: int, m: int,
@@ -199,9 +214,9 @@ def _sweep(data: torch.Tensor, m: int, n: int, nb: int, preserve_l: bool,
     A[: data.shape[0], : data.shape[1]] = data
     P = torch.arange(m_pad, dtype=torch.int32, device=dev)
     Q = torch.arange(n_pad, dtype=torch.int32, device=dev)
-    consts = panel_consts(nb, dev)
-    slotv, eye_nb, _, steps = consts
+    slotv = torch.arange(nb, dtype=torch.int32, device=dev)
     post = panel_post_hopper if hopper else panel_post_plain
+    inverse = tri_inv(engine)
     tiles_j = -(-w_pad // TILE_WORDS)
     dyn = dyn_skip and m_pad % TILE_ROWS == 0 and w_pad % TILE_WORDS == 0
     # the panel's U rows, written anew each panel: one buffer for the sweep
@@ -233,7 +248,7 @@ def _sweep(data: torch.Tensor, m: int, n: int, nb: int, preserve_l: bool,
                 live = slotv < r_f - r_in
                 m_small, wmat, cmb = post_operands(
                     ALw[:nb], live, q_f - t * nb, t * nb, n, preserve_l,
-                    consts, not search_window)
+                    slotv, not search_window, engine)
             with spans.span("panel.post"):
                 vw_full, lamw_full, miss = post(Xw, m_small, wmat, cmb,
                                                 r_in + W, m)
@@ -274,10 +289,12 @@ def _sweep(data: torch.Tensor, m: int, n: int, nb: int, preserve_l: bool,
                 Q[r_in : r] = q_pan[:rank_panel]
                 A = _write_panel_cols(A, panel_full, c0w)
 
-            # --- U rows of this panel via nilpotent inversion of L11 ---
+            if t == n_panels - 1:
+                break                   # no trailing column is left to update
+            # --- U rows of this panel: S = L11^{-1} (unit lower triangular,
+            # packed) times the panel's rows ---
             with spans.span("panel.u_rows"):
-                l11 = unpack_bits(Lpw[r_in : r_in + nb], torch.int8)
-                s_pk = pack_bits(_unit_upper_inv(l11, eye_nb, steps))
+                s_pk = inverse(Lpw[r_in : r_in + nb], False)
                 a_block = A[r_in : r_in + nb]
                 if hopper:
                     gf2_mul_hopper(s_pk, a_block, out=up)

@@ -6,19 +6,17 @@ Gray-code tables, triangular_russian.c) and mzd_trtri_upper
 (triangular.c:518-546).
 
 Over GF(2) an invertible triangular matrix is unit triangular, T = I + N
-with N strictly triangular and nilpotent, so
-
-    T^{-1} = I + N + N^2 + ... = prod_k (I + N^(2^k))
-
-which takes log2(n) products: the sequential substitution of the
-reference's base cases becomes a handful of float32 products
-(models/ple.py::_unit_upper_inv).  TRTRI recurses 2x2 on word-aligned
-halves ([A B; 0 D]^{-1} = [Ai, Ai B Di; 0, Di]).  TRSM substitutes 2x2
-blockwise down to ``Config.trsm_base`` (``trsm_wide_base`` when B is at
-least a quarter as wide as T), then multiplies by the block's inverse.  The
-large products go through ``ops/mul.py::mul``, so on the card through the
-GF(2) GEMM kernel and Strassen.  Blocks are views of their parent (every
-split is on a word boundary); nothing writes to an argument.
+with N strictly triangular and nilpotent.  The JAX package inverts the base
+blocks as T^{-1} = prod_k (I + N^(2^k)), log2(n) products; here a base
+block is one call of ``ops/hopper_trinv.py::unit_tri_inv_hopper``, a
+blocked back-substitution on the packed words (one launch a batch of blocks
+on the card, the same steps in plain PyTorch on the CPU).  TRTRI recurses
+2x2 on word-aligned halves ([A B; 0 D]^{-1} = [Ai, Ai B Di; 0, Di]).  TRSM
+substitutes 2x2 blockwise down to ``Config.trsm_base`` (``trsm_wide_base``
+when B is at least a quarter as wide as T), then multiplies by the block's
+inverse.  The large products go through ``ops/mul.py::mul``, so on the card
+through the GF(2) GEMM kernel and Strassen.  Blocks are views of their
+parent (every split is on a word boundary); nothing writes to an argument.
 
 The recursion indexes the last two axes only, so a stack of matrices
 (``BitMatrix`` with data ``[B, rows, words]``) runs through it unchanged when
@@ -33,9 +31,9 @@ import torch
 
 from ..core.bitmatrix import BitMatrix, mask_padding, width_for
 from ..core.bitops import _triangle_mask
-from ..ops.mul import mul, pack_bits, unpack_bits
+from ..ops.hopper_trinv import unit_tri_inv_hopper
+from ..ops.mul import mul
 from ..utils.config import WORD_BITS, get_config
-from .ple import _unit_upper_inv
 
 __all__ = ["trtri_upper", "trtri_lower", "trsm_upper_left",
            "trsm_lower_left", "trsm_upper_right", "trsm_lower_right"]
@@ -51,7 +49,7 @@ def _clean_tri(t: BitMatrix, upper: bool) -> BitMatrix:
     _mzd_trsm_upper_right_trtri first takes mzd_extract_u, and
     mzd_pluq_solve_left hands the combined L\\U in-place matrix straight to
     TRSM), so junk in the opposite triangle must not leak into the
-    nilpotent-series inverse."""
+    inverse."""
     return BitMatrix(t.data & _triangle_mask(t.ncols, upper, t.device),
                      t.ncols)
 
@@ -62,14 +60,6 @@ def _block(t: BitMatrix, r0: int, c0: int, r1: int, c1: int) -> BitMatrix:
     assert c0 % WORD_BITS == 0 and (c1 % WORD_BITS == 0 or c1 == t.ncols)
     return BitMatrix(t.data[..., r0:r1, c0 // WORD_BITS: width_for(c1)],
                      c1 - c0)
-
-
-def _tri_inv_base(tdata: torch.Tensor, n: int) -> torch.Tensor:
-    """Invert unit-triangular packed n x n via the nilpotent series."""
-    eye = torch.eye(n, dtype=torch.int8, device=tdata.device)
-    nil = unpack_bits(tdata, torch.int8)[..., :n] ^ eye
-    steps = max(0, (n - 1).bit_length() - 1)
-    return pack_bits(_unit_upper_inv(nil, eye, steps))
 
 
 def _split(n: int) -> int:
@@ -84,7 +74,8 @@ def _trtri(t: BitMatrix, upper: bool, mul_fn=mul, cfg=None) -> BitMatrix:
     n = t.ncols
     assert t.nrows == n
     if n <= cfg.trsm_base:
-        return mask_padding(BitMatrix(_tri_inv_base(t.data, n), n))
+        # the base block's words as they are, its diagonal read as ones
+        return mask_padding(BitMatrix(unit_tri_inv_hopper(t.data, upper), n))
     n1 = _split(n)
     w1 = n1 // WORD_BITS
     ai = _trtri(_block(t, 0, 0, n1, n1), upper, mul_fn, cfg)

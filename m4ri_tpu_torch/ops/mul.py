@@ -49,30 +49,50 @@ class exact_float32:
         torch.backends.cuda.matmul.allow_tf32 = self._saved
 
 
-def _shifts(device) -> torch.Tensor:
-    return torch.arange(WORD_BITS, dtype=torch.int32, device=device)
+# int64 constants of the byte-wise (un)packing, as signed 64-bit values: a
+# byte copied into all eight bytes, bit j kept in byte j; and the multiplier
+# that gathers bit 0 of byte j at bit 56 + j
+_REPEAT = 0x0101010101010101
+_SELECT = 0x8040201008040201 - (1 << 64)
+_GATHER = sum(1 << (56 - 7 * j) for j in range(8))
+
+
+def _flat(t: torch.Tensor, align: int = 1) -> torch.Tensor:
+    """t's elements in row-major order, 1-D with stride 1 and a storage
+    offset a multiple of ``align`` elements (a copy where t's is not)."""
+    x = t.reshape(-1)
+    if x.stride(0) != 1 or x.storage_offset() % align:
+        x = x.clone(memory_format=torch.contiguous_format)
+    return x
 
 
 def unpack_bits(data: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     """int32[..., m, w] -> dtype[..., m, w*32] of 0/1 lanes (column c at
-    lane c; leading batch axes pass through).  The arithmetic ``>>`` is
-    harmless: ``& 1`` keeps bit 0 only."""
+    lane c; leading batch axes pass through).  Each byte of the words is
+    spread over one int64 by a multiply, so every pass is a dense one over
+    8-byte elements; a 1-byte ``dtype`` is a view of the result."""
     *lead, w = data.shape
-    bits = (data[..., None] >> _shifts(data.device)) & 1
-    return bits.reshape(*lead, w * WORD_BITS).to(dtype)
+    x = _flat(data).view(torch.uint8).to(torch.int64)
+    x.mul_(_REPEAT).bitwise_and_(_SELECT)
+    bits = x.view(torch.int8).ne(0).reshape(*lead, w * WORD_BITS)
+    if dtype == torch.bool:
+        return bits
+    return bits.view(dtype) if dtype.itemsize == 1 else bits.to(dtype)
 
 
 def pack_bits(bits: torch.Tensor) -> torch.Tensor:
-    """0/1 integer [..., m, n] -> packed int32[..., m, ceil(n/32)].  The 32
-    shifted bits of a word are disjoint, so their int32 sum is their OR;
-    bit 31 lands on the sign and nothing overflows."""
+    """0/1 integer [..., m, n] -> packed int32[..., m, ceil(n/32)]: the
+    bits as bytes, padded to whole words, each 8 of them read as one int64
+    and gathered into a byte by a multiply."""
     *lead, n = bits.shape
     w = width_for(n)
-    pad = w * WORD_BITS - n
-    if pad:
-        bits = torch.nn.functional.pad(bits, (0, pad))
-    u = bits.reshape(*lead, w, WORD_BITS).to(torch.int32)
-    return (u << _shifts(bits.device)).sum(dim=-1, dtype=torch.int32)
+    x = bits.to(torch.int8)
+    if w * WORD_BITS > n:
+        x = torch.nn.functional.pad(x, (0, w * WORD_BITS - n))
+    x = _flat(x, 8).view(torch.int64) * _GATHER
+    # the cast to uint8 keeps the low byte of the shifted product
+    x = x.bitwise_right_shift_(56).to(torch.uint8).view(torch.int32)
+    return x.reshape(*lead, w)
 
 
 def _dot_parity(a_u: torch.Tensor, b_u: torch.Tensor) -> torch.Tensor:

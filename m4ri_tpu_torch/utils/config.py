@@ -69,7 +69,7 @@ class Config:
     # (engine "hopper" of models/ple.py); off, the plain PyTorch engine.
     use_hopper_panel: bool = True
     # TRSM / TRTRI recursion (models/triangular.py): blocks of at most
-    # trsm_base are inverted with the nilpotent series; a B at least a
+    # trsm_base are inverted whole (ops/hopper_trinv.py); a B at least a
     # quarter as wide as T substitutes down to trsm_wide_base, then inverts
     # the block and multiplies.
     trsm_base: int = 512

@@ -1148,3 +1148,78 @@ def test_batched_top_and_naive_equal_the_cpu_port(card, entry):
     want = call(a.cpu())
     for g, w in zip(got, want):
         assert g.device.type == "cuda" and torch.equal(g.cpu(), w)
+
+
+# ---- the unit-triangular inverse (ops/hopper_trinv.py) ---------------------
+
+from m4ri_tpu_torch.ops import hopper_trinv  # noqa: E402
+
+
+def _nil_stack(seed, batch, n, card, upper):
+    """[batch, n, w(n)] random words with padding bits zero; with three or
+    more elements the first is zero and the second the full strict
+    triangle."""
+    w = (n + 31) // 32
+    nil = _packed(seed, batch * n, n, card).view(batch, n, w)
+    if batch >= 3:
+        i = np.arange(n)
+        full = (i[None, :] > i[:, None]) if upper else (i[None, :] < i[:, None])
+        nil[0] = 0
+        nil[1] = _words_on_card(full)
+    return nil
+
+
+def _words_on_card(bits):
+    import m4ri_tpu_torch as mt
+    return mt.from_numpy(bits.astype(np.uint8)).data
+
+
+@pytest.mark.parametrize("upper", [True, False])
+@pytest.mark.parametrize("batch,n", [(1024, 512), (1024, 384), (1, 1024),
+                                     (2**12, 32), (3, 1024), (5, 100),
+                                     (40, 512)])
+def test_unit_tri_inv_equals_plain(card, batch, n, upper):
+    """The kernel against its plain version on the card, bit for bit, at
+    the McEliece T / S and TRSM-base shapes, the single sweep's wide panel,
+    NIST's 32, a ragged width and a batch below the SMs (column strips)."""
+    nil = _nil_stack(200 + n + batch, batch, n, card, upper)
+    before = counts().get("launch.unit_tri_inv_hopper", 0)
+    got = hopper_trinv.unit_tri_inv_hopper(nil, upper)
+    torch.cuda.synchronize()
+    assert counts().get("launch.unit_tri_inv_hopper", 0) == before + 1
+    assert torch.equal(got, hopper_trinv.unit_tri_inv_plain(nil, upper))
+
+
+def test_unit_tri_inv_takes_views(card):
+    """A block of a wider matrix (rows further apart than its words), as the
+    TRSM recursion hands it over."""
+    parent = _packed(210, 4 * 768, 768, card).view(4, 768, 24)
+    view = parent[:, 384:, 12:]
+    got = hopper_trinv.unit_tri_inv_hopper(view, True)
+    assert torch.equal(got, hopper_trinv.unit_tri_inv_plain(view.contiguous(),
+                                                           True))
+
+
+def test_sweeps_through_the_inverse_equal_the_plain_engine(card):
+    """A ple 4096^2 and a batched McEliece-shaped sweep take the inverse
+    (a T a panel, an L11^{-1} a panel but the last) and equal the plain
+    engine, which takes its plain version."""
+    import m4ri_tpu_torch as mt
+    from m4ri_tpu_torch.models.batched import block_factor_batched
+    A = mt.from_packed(_packed(211, 4096, 4096, card), 4096)
+    key = "launch.unit_tri_inv_hopper"
+    before = counts().get(key, 0)
+    got = mt.block_factor(A, preserve_l=True)
+    assert counts().get(key, 0) - before == 2 * 8 - 1
+    want = mt.block_factor(A, preserve_l=True, engine="plain")
+    for g, w in zip(got[:3], want[:3]):
+        assert torch.equal(g, w)
+    assert got[3] == want[3]
+    data = _stack(212, 16, 768, 3488, card)
+    for pres in (False, True):
+        before = counts().get(key, 0)
+        got = block_factor_batched(data, 3488, pres)
+        assert counts().get(key, 0) - before == 2 * 7 - 1
+        want = block_factor_batched(data, 3488, pres, engine="plain")
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)

@@ -143,7 +143,8 @@ def test_block_factor_schur_dyn(rng, monkeypatch):
         monkeypatch.delenv("M4RI_TPU_TORCH_SCHUR_DYN")
         tconfig.get_config.cache_clear()
     _assert_factor_equal(want, got, "schur_dyn")
-    assert len(calls) == 2                                   # one a panel
+    # one a panel but the last, which leaves no column to update
+    assert len(calls) == 1
     assert small[3] == oracle.rank(a[:, :96])
 
 

@@ -141,15 +141,19 @@ def test_entry_points_span_names_on_cpu():
     edges, roots = _edges(_recorded(
         lambda: mt.echelonize_batched(h, 200, nb=32)))
     assert roots == ["echelonize_batched"]
+    # the TRSM's base blocks go through the inverse's wrapper on any device
+    trsm_base = ("trsm", "kernel.unit_tri_inv_hopper")
     assert edges == {("echelonize_batched", "sweep"),
-                     ("echelonize_batched", "rref"), ("rref", "trsm")} | SWEEP
+                     ("echelonize_batched", "rref"), ("rref", "trsm"),
+                     trsm_base} | SWEEP
 
     sq, s = _words(7, 96, 96, batch=3), _words(8, 96, 1, batch=3)
     edges, roots = _edges(_recorded(
         lambda: mt.solve_left_batched(sq, 96, s, 1, nb=32)))
     assert roots == ["solve_left_batched"]
     assert edges == {("solve_left_batched", "sweep"),
-                     ("solve_left_batched", "solve"), ("solve", "trsm")} | SWEEP
+                     ("solve_left_batched", "solve"), ("solve", "trsm"),
+                     trsm_base} | SWEEP
 
 
 def test_a_miss_nests_its_read_back_in_the_fallback():
@@ -175,7 +179,9 @@ def test_kernel_spans_carry_host_operands(single):
         got = _recorded(lambda: mt.block_factor(a, True, nb=32,
                                                 engine="hopper"))
         want = {("panel.loop", "kernel.panel_loop_hopper"),
+                ("panel.operands", "kernel.unit_tri_inv_hopper"),
                 ("panel.post", "kernel.panel_post_hopper"),
+                ("panel.u_rows", "kernel.unit_tri_inv_hopper"),
                 ("panel.u_rows", "kernel.gf2_mul_hopper"),
                 ("panel.schur", "kernel.gf2_schur_update_hopper")}
     else:
@@ -183,7 +189,9 @@ def test_kernel_spans_carry_host_operands(single):
         got = _recorded(lambda: batched.block_factor_batched(
             h, 200, True, nb=32, engine="hopper"))
         want = {("panel.loop", "kernel.panel_loop_hopper_batched"),
+                ("panel.operands", "kernel.unit_tri_inv_hopper"),
                 ("panel.post", "kernel.panel_post_hopper_batched"),
+                ("panel.u_rows", "kernel.unit_tri_inv_hopper"),
                 ("panel.u_rows", "kernel.gf2_schur_update_batched_hopper"),
                 ("panel.schur", "kernel.gf2_schur_update_batched_hopper")}
     edges, _ = _edges(got)
@@ -191,6 +199,14 @@ def test_kernel_spans_carry_host_operands(single):
     for s in got:
         assert all(v is None or isinstance(v, (int, str))
                    for v in s.attrs.values()), s
+    inverses = [s.attrs for s in got
+                if s.name == "kernel.unit_tri_inv_hopper"]
+    batch = 1 if single else 3
+    # a T a panel (upper) and an L11^{-1} a panel but the last (lower)
+    assert inverses[:2] == [dict(batch=batch, n=32, upper=1),
+                            dict(batch=batch, n=32, upper=0)]
+    assert sum(a["upper"] for a in inverses) == (5 if single else 7)
+    assert len(inverses) == (9 if single else 13)
     if single:
         schur = [s.attrs for s in got
                  if s.name == "kernel.gf2_schur_update_hopper"]

@@ -274,6 +274,7 @@ def block_factor_batched(data: torch.Tensor, ncols: int, preserve_l: bool,
                                       search_window, window, engine)
 
 
+@spans.entry("rank_batched")
 def rank_batched(data: torch.Tensor, ncols: int) -> torch.Tensor:
     """The rank of every element of a batch, int32 ``[B]`` on the device:
     ``block_factor_batched(data, ncols, preserve_l=False)``'s ``r``."""

@@ -156,6 +156,18 @@ def test_entry_points_span_names_on_cpu():
                      trsm_base} | SWEEP
 
 
+def test_rank_batched_is_a_root_over_one_panel():
+    """NIST SP 800-22's 32 x 32 ranks: one panel, so no U rows and no
+    trailing update under the root."""
+    nist = _words(12, 32, 32, batch=5)
+    got = _recorded(lambda: mt.rank_batched(nist, 32))
+    edges, roots = _edges(got)
+    assert roots == ["rank_batched"]
+    one_panel = SWEEP - {("panel", "panel.u_rows"), ("panel", "panel.schur")}
+    assert edges == {("rank_batched", "sweep")} | one_panel
+    assert sum(s.name == "panel.readback" for s in got) == 1
+
+
 def test_a_miss_nests_its_read_back_in_the_fallback():
     data = _words(9, 96, 96)
     data[20:60] = 0
@@ -247,12 +259,15 @@ def _calls(dev):
     g = torch.Generator(device=dev).manual_seed(13)
     a = mt.randomize(4096, 4096, g)
     h = _keygen_stack(dev)
+    nist = torch.randint(-2**31, 2**31, (976_000, 32, 1), dtype=torch.int32,
+                         device=dev, generator=g)
     return {"ple": lambda: mt.ple(a),
-            "keygen": lambda: mt.echelonize_batched(h, 3488)}
+            "keygen": lambda: mt.echelonize_batched(h, 3488),
+            "rank": lambda: mt.rank_batched(nist, 32)}
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("entry", ["ple", "keygen"])
+@pytest.mark.parametrize("entry", ["ple", "keygen", "rank"])
 def test_own_launches_lie_in_their_kernel_spans(card, entry):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -281,7 +296,7 @@ def test_own_launches_lie_in_their_kernel_spans(card, entry):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("entry", ["ple", "keygen"])
+@pytest.mark.parametrize("entry", ["ple", "keygen", "rank"])
 def test_read_back_counters_equal_the_sync_debug_mode(card, entry):
     call = _calls(card)[entry]
     call()
@@ -300,3 +315,18 @@ def test_read_back_counters_equal_the_sync_debug_mode(card, entry):
     counted = sum(n - before.get(k, 0) for k, n in after.items()
                   if k.startswith("readback."))
     assert waits == counted > 0
+
+
+@pytest.mark.cuda
+def test_rank_batched_kernel_spans_nest_in_its_phases(card):
+    g = torch.Generator(device=card).manual_seed(14)
+    nist = torch.randint(-2**31, 2**31, (4096, 32, 1), dtype=torch.int32,
+                         device=card, generator=g)
+    mt.rank_batched(nist, 32)                    # kernels built
+    torch.cuda.synchronize()
+    edges, roots = _edges(_recorded(lambda: mt.rank_batched(nist, 32)))
+    assert roots == ["rank_batched"]
+    assert {e for e in edges if e[1].startswith("kernel.")} == {
+        ("panel.loop", "kernel.panel_loop_hopper_batched"),
+        ("panel.operands", "kernel.unit_tri_inv_hopper"),
+        ("panel.post", "kernel.panel_post_hopper_batched")}

@@ -95,8 +95,8 @@ from m4ri_tpu_torch.benches.split_batched import trace as device_trace
 from m4ri_tpu_torch.core import permutation as perm_mod
 from m4ri_tpu_torch.core.bitmatrix import BitMatrix, mask_padding
 from m4ri_tpu_torch.models import ple as ple_mod
-from m4ri_tpu_torch.ops import (_build, hopper_panel, hopper_post, hopper_schur,
-                                hopper_trinv)
+from m4ri_tpu_torch.ops import (_build, hopper_operands, hopper_panel,
+                                hopper_post, hopper_schur, hopper_trinv)
 from m4ri_tpu_torch.ops.hopper_mul import gf2_mul_hopper, gf2_mul_plain
 from m4ri_tpu_torch.ops.hopper_mul2 import gf2_mul_hopper_v2
 from m4ri_tpu_torch.ops.hopper_panel import panel_loop_hopper, panel_loop_plain
@@ -161,6 +161,12 @@ KERNELS = {
         source="m4ri_tpu_torch/csrc/gf2_trinv_hopper.cu",
         replaces="none: the nilpotent series (m4ri_tpu/models/ple.py:64, "
                  "_unit_upper_inv), no pallas_call"),
+    # the below-window elimination's operands, T = U_piv^{-1} among them
+    "post_operands_hopper": dict(
+        fn=hopper_operands.post_operands_hopper,
+        source="m4ri_tpu_torch/csrc/gf2_trinv_hopper.cu",
+        replaces="none: the sweep's in-graph operand glue "
+                 "(m4ri_tpu/models/ple.py:255-293), no pallas_call"),
 }
 GEMMS = ("gf2_mul_hopper", "gf2_mul_hopper_v2")
 SOURCES = ["gf2_gemm_hopper", "gf2_schur_hopper",
@@ -801,6 +807,100 @@ def phase_trinv_kernel(rng) -> dict:
     return report
 
 
+# (batch, nb, preserve_l) of the four sweep cells: nist_sp800_22.rank,
+# mceliece348864.keygen (strategy m4ri), mceliece348864.isd, dense32768.ple
+OPERANDS_SHAPES = [(976_000, 32, False), (1024, 512, False),
+                   (1024, 512, True), (1, 1024, True)]
+
+
+def operands_inputs(rng, batch: int, nb: int):
+    """A batch of slot rows as the batched sweep passes them (a view of a
+    taller window), counts over [0, nb], distinct pivot columns in the live
+    slots and garbage elsewhere."""
+    nbw = nb // 32
+    h = nb + 64
+    al = packed(rng, batch * h, 64 * nbw).view(batch, h, 2 * nbw)
+    cnt = rng.integers(0, nb + 1, batch)
+    cnt[: min(batch, 3)] = [0, 1, nb][: min(batch, 3)]
+    r0 = rng.integers(0, 1000, batch)
+    live = np.arange(nb)[None, :] < cnt[:, None]
+    perm = torch.rand((batch, nb), device=DEV).argsort(1).cpu().numpy()
+    q = np.where(live, perm, rng.integers(-50, 2 * nb, (batch, nb)))
+    as_card = lambda x: torch.from_numpy(x.astype(np.int32)).to(DEV)
+    return al[:, :nb], as_card(r0 + cnt), as_card(r0), as_card(q)
+
+
+def operands_bound(batch: int, nb: int, chain_floor_ms: float) -> dict:
+    """Least time for the operands of ``batch`` windows of nb slots: the
+    slot rows read once (nb^2 / 4 bytes an element) and the three outputs
+    written once (2 nb^2 + nb bytes), or, for the block plan, the chain of
+    the inverse it runs (``chain_floor_ms``, the probe's device time)."""
+    nbytes = batch * (nb * nb // 4 + 2 * nb * nb + nb)
+    terms = {"bytes": nbytes / PEAK_BYTES_PER_S * 1e3, "chain": chain_floor_ms}
+    by = max(terms, key=terms.get)
+    return {"bound_ms": terms[by], "bound_by": by, "bytes": nbytes,
+            **{f"{k}_bound_ms": v for k, v in terms.items()}}
+
+
+def phase_operands_kernel(rng) -> dict:
+    """The operands' kernels against their plain version byte for byte at
+    the four sweep cells' shapes and a few small ones, single and batched,
+    each plan; then the wrapper's time at the cells' shapes (median of 11
+    CUDA-event runs), its device time, the plain chain's time and the
+    bound."""
+    name, bad, checked, shapes = "post_operands_hopper", 0, [], []
+    fn = hopper_operands.post_operands_hopper
+    plain = hopper_operands.post_operands_plain
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for batch, nb, pres in [*OPERANDS_SHAPES, (7, 32, True), (131, 512, True),
+                            (3, 96, False)]:
+        args = operands_inputs(rng, batch, nb)
+        for miss in (True, False):
+            got = fn(*args, 0, 32 * nb, 33 * nb - 7, pres, miss)
+            torch.cuda.synchronize()
+            want = plain(*args, 0, 32 * nb, 33 * nb - 7, pres, miss)
+            bad |= int(not all(torch.equal(g, w) for g, w in zip(got, want)))
+            del got, want
+        if batch == 1:          # the single-window form of the same call
+            Pw, rank, r0, q = args
+            got = fn(Pw[0], rank[0], int(r0[0]), q[0] + 64, 64, 0, nb, pres)
+            want = plain(Pw[0], rank[0], int(r0[0]), q[0] + 64, 64, 0, nb,
+                         pres)
+            bad |= int(not all(torch.equal(g, w) for g, w in zip(got, want)))
+        checked.append(f"{batch} x {nb} preserve_l={pres}")
+    check(bad == 0, f"{name} disagrees with its plain version")
+    for batch, nb, pres in OPERANDS_SHAPES:
+        args = operands_inputs(rng, batch, nb)
+        call = lambda: fn(*args, 0, 0, 1 << 30, pres, True)
+        zero_counts()
+        t = time_ms(call)
+        launches = counted(f"launch.{name}")
+        dev = device_trace(call, calls=11)
+        tp = time_ms(lambda: plain(*args, 0, 0, 1 << 30, pres, True), runs=3,
+                     warmup=1)
+        plan = hopper_operands.operands_plan(batch, nb, sms)
+        floor_dev = 0.0
+        if plan[0] == "block":
+            floor_dev = device_trace(
+                lambda: hopper_trinv.chain_floor(batch, nb),
+                calls=11)["device_ms"]
+        shapes.append({"batch": batch, "nb": nb, "preserve_l": pres,
+                       "plan": list(plan), "ms": t["median"],
+                       "ms_min": t["min"], "ms_max": t["max"],
+                       "runs": t["runs"], "wrapper_calls": launches,
+                       "device_ms": dev["device_ms"],
+                       "device_ms_by_kernel": dev["device_ms_by_kernel"],
+                       "plain_ms": tp["median"],
+                       **operands_bound(batch, nb, floor_dev)})
+        del args
+    report = {name: kernel_entry(name, bad, shapes[0],
+                                 device_ms=shapes[0]["device_ms"],
+                                 timed_at=list(OPERANDS_SHAPES[0]),
+                                 checked=checked, shapes=shapes)}
+    emit("kernels_operands", kernels=list(report.values()))
+    return report
+
+
 def phase_mul_4096(seed: int) -> dict:
     n = 4096
     rng = np.random.default_rng(seed)
@@ -964,7 +1064,8 @@ def phase_naive_and_golden(seed: int) -> None:
 
 FACTOR_KERNELS = ("panel_loop_hopper", "panel_post_hopper",
                   "gf2_schur_update_hopper", "gf2_schur_update_dyn_hopper",
-                  "gf2_mul_hopper", "unit_tri_inv_hopper")
+                  "gf2_mul_hopper", "unit_tri_inv_hopper",
+                  "post_operands_hopper")
 
 
 def sync_waits(caught) -> int:
@@ -1039,13 +1140,15 @@ def phase_ple_16384(seed: int) -> dict:
         want = m4.block_factor(A, preserve_l=pres, engine="plain")
         same_factors(got, want, f"block_factor 16384 preserve_l={pres}")
         # the last panel leaves no column to update: no U rows, no Schur
-        # update; a T a panel and an L11^{-1} a panel but the last
+        # update; the operands (T among them) a panel and an L11^{-1} a
+        # panel but the last
         check(launched == {"panel_loop_hopper": panels + misses,
                            "panel_post_hopper": panels,
                            "gf2_schur_update_hopper": panels - 1,
                            "gf2_schur_update_dyn_hopper": 0,
                            "gf2_mul_hopper": panels - 1,
-                           "unit_tri_inv_hopper": 2 * panels - 1},
+                           "unit_tri_inv_hopper": panels - 1,
+                           "post_operands_hopper": panels},
               f"block_factor 16384 launched {launched} over {panels} panels")
         check(syncs == panels + misses, f"{syncs} read-backs, {panels} panels")
         per_run[f"preserve_l={pres}"] = {"launches": launched, "rank": got[3],
@@ -1192,7 +1295,8 @@ def phase_ple_32768(seed: int) -> dict:
           and launched["panel_post_hopper"] == panels
           and launched["gf2_schur_update_hopper"] == panels - 1
           and launched["gf2_mul_hopper"] == panels - 1
-          and launched["unit_tri_inv_hopper"] == 2 * panels - 1,
+          and launched["unit_tri_inv_hopper"] == panels - 1
+          and launched["post_operands_hopper"] == panels,
           f"ple 32768 launched {launched} over {panels} panels")
     t0 = time.perf_counter()
     want = m4.block_factor(A, preserve_l=True, engine="plain")
@@ -2695,7 +2799,8 @@ def phase_batched_rank_nist(seed: int) -> dict:
     check(launched["panel_loop_hopper_batched"] == 1
           and launched["panel_post_hopper_batched"] == 1
           and launched["gf2_schur_update_batched_hopper"] == 0
-          and launched["unit_tri_inv_hopper"] == 1,      # T, a warp a matrix
+          and launched["unit_tri_inv_hopper"] == 0       # T in the operands
+          and launched["post_operands_hopper"] == 1,     # a warp a matrix
           f"rank_batched 32x32 launched {batch_counts()}")
     check(syncs == 1 and misses == 0, f"{syncs} read-backs, {misses} fallbacks")
     kinds = panel_kinds()
@@ -3323,6 +3428,7 @@ def main() -> int:
         report.update(phase_panel_kernel(rng))
         report.update(phase_post_kernel(rng))
         report.update(phase_trinv_kernel(rng))
+        report.update(phase_operands_kernel(rng))
         report.update(phase_batched_kernels(seed))
         launches = {name: 0 for name in KERNELS}
         for got in (phase_mul_4096(seed), phase_mul_routes(seed),

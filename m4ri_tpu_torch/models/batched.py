@@ -21,10 +21,9 @@ Python ints.  So the batched sweep here is ``_block_factor_impl``
   the window's row permutation, the panel write-back and the P/Q commit go
   back with scatters masked by ``slot < rank_panel[b]`` (the form of the JAX
   package's ``dynamic_update_slice``);
-- the glue's nb x nb products by the one-hot pivot-column matrix are
-  gathers, and its two unit-triangular inverses a panel (the pivot block
-  U_piv for the elimination's operands, L11 for the U rows) are one batched
-  launch each on packed words (``unit_tri_inv_hopper``);
+- the elimination's operands (U_piv^{-1} among them) are one wrapper call
+  a panel for the batch (``post_operands_hopper``), and L11^{-1} for the U
+  rows one batched launch on packed words (``unit_tri_inv_hopper``);
 - the pivot loop, the below-window elimination and the U rows / trailing
   update run as one batched launch each (``panel_loop_hopper_batched``,
   ``panel_post_hopper_batched``, ``gf2_schur_update_batched_hopper``);
@@ -137,6 +136,7 @@ def _sweep(data: torch.Tensor, m: int, n: int, nb: int, preserve_l: bool,
     Q = torch.arange(n_pad, dtype=torch.int32, device=dev).repeat(B, 1)
     slotv = torch.arange(nb, dtype=torch.int32, device=dev)
     inverse = tri_inv(engine)
+    operands = post_operands(engine)
     wv = torch.arange(W, dtype=torch.int32, device=dev)
     loop = panel_loop_hopper_batched if hopper else panel_loop_batched_plain
     post = panel_post_hopper_batched if hopper else panel_post_batched_plain
@@ -163,10 +163,9 @@ def _sweep(data: torch.Tensor, m: int, n: int, nb: int, preserve_l: bool,
             # window (r + search_window <= r_in + W), so a bare below-window
             # 1 is legitimate: no miss check, and nothing to read back
             with spans.span("panel.operands"):
-                live = slotv[None, :] < (r_f - r_in)[:, None]  # [B, nb]
-                m_small, wmat, cmb = post_operands(
-                    ALw[:, :nb], live, q_f, t * nb, n, preserve_l, slotv,
-                    not search_window, engine)
+                m_small, wmat, cmb = operands(
+                    ALw[:, :nb], r_f, r_in, q_f, 0, t * nb, n, preserve_l,
+                    not search_window)
             with spans.span("panel.post"):
                 vw_full, lamw_full, miss = post(Xw, m_small, wmat, cmb,
                                                 r_in + W, m)

@@ -16,13 +16,13 @@ factorization with tensor-core Schur updates*:
   a column where the window has no candidate but an outside row does, is
   detected exactly from the batched residuals and the panel is then redone
   with a full-height window.
-- The panel's unit-lower transform L11 and the pivot block U_piv are
-  inverted on packed words (ops/hopper_trinv.py: one blocked
-  back-substitution an inverse, where the JAX package takes the nilpotent
-  series), giving the panel's U rows in one packed multiply
-  (ops/hopper_mul.py); the products by the one-hot pivot-column matrix are
-  gathers.  The trailing Schur update is one fused in-place GF(2) product
-  (ops/hopper_schur.py).
+- The below-window elimination's operands, U_piv^{-1} among them, are one
+  wrapper call a panel (ops/hopper_operands.py: packed words, where the JAX
+  package takes one-hot products and the nilpotent series).  The panel's
+  unit-lower transform L11 is inverted on packed words
+  (ops/hopper_trinv.py: one blocked back-substitution), giving the panel's
+  U rows in one packed multiply (ops/hopper_mul.py).  The trailing Schur
+  update is one fused in-place GF(2) product (ops/hopper_schur.py).
 - Like the reference, the in-place result preserves L in the pivot columns
   (elimination touches only columns right of the pivot, cf.
   `mzd_row_add_offset(A, l, row, j+1)` in ple.c:245), then `_compress_l_impl`
@@ -45,6 +45,7 @@ from ..core.bitmatrix import BitMatrix, mask_padding, width_for
 from ..core.permutation import apply_p_right_trans_tri
 from ..core.transpose import transpose
 from ..ops.hopper_mul import gf2_mul_hopper, gf2_mul_plain
+from ..ops.hopper_operands import post_operands_hopper, post_operands_plain
 from ..ops.hopper_panel import panel_loop_hopper, panel_loop_plain
 from ..ops.hopper_post import panel_post_hopper, panel_post_plain
 # the series stays importable from here for parallel/ (dist_ple, dist_echelon)
@@ -54,7 +55,7 @@ from ..ops.hopper_schur import (TILE_ROWS, TILE_WORDS,
                                 gf2_schur_update_dyn_hopper,
                                 gf2_schur_update_hopper,
                                 gf2_schur_update_plain)
-from ..ops.mul import exact_float32, pack_bits, unpack_bits
+from ..ops.mul import exact_float32
 from ..utils import spans
 from ..utils.config import WORD_BITS, get_config
 
@@ -82,72 +83,11 @@ def tri_inv(engine: str):
     return unit_tri_inv_plain if engine == "plain" else unit_tri_inv_hopper
 
 
-def post_operands(Pw: torch.Tensor, live: torch.Tensor, qloc: torch.Tensor,
-                  col0: int, n: int, preserve_l: bool, slotv: torch.Tensor,
-                  miss_check: bool = True, engine: str = "hopper"):
-    """The below-window elimination's small operands from a window's
-    pivot-slot rows, for one window or a batch of them (a leading batch
-    axis passes through): ``Pw`` [..., nb, 2nb/32] (the fused rows
-    [panel | L] at the pivot slots), ``live`` bool [..., nb] (slot s holds a
-    pivot), ``qloc`` [..., nb] (its panel column); ``slotv`` the slot
-    indices 0..nb-1 (int32).  Returns int8 (m_small = E^T T [..., nb, nb],
-    wmat [..., nb, nb], colmask bits [..., nb]): E the one-hot pivot-column
-    rows, T the inverse of U restricted to its pivot columns, the column
-    mask the valid columns (panel column ``col0`` on, below ``n``) that hold
-    no pivot, or none without ``miss_check``.
-
-    Every product by E is a selection: U E^T takes U's columns at the pivot
-    columns, E^T T puts T's rows at them, L E puts L's columns there; so
-    they are gathers on 0/1 bytes, and T is one call of the unit-triangular
-    inverse (``tri_inv(engine)``) on packed words."""
-    single = Pw.dim() == 2
-    if single:
-        Pw, live, qloc = Pw[None], live[None], qloc[None]
-    B, nb = Pw.shape[:2]
-    nbw = nb // WORD_BITS
-    live8 = live.to(torch.int8)
-    # pivot column of each slot (0 where it holds none: masked below); inv[c]
-    # the slot whose pivot column is c, else nb
-    cloc = torch.where(live, qloc, 0).long()
-    inv = torch.full((B, nb + 1), nb, dtype=torch.int64, device=Pw.device)
-    inv.scatter_(1, torch.where(live, cloc, nb), slotv.long().expand(B, -1))
-    inv = inv[:, :nb]
-    nopiv = inv == nb                        # columns that hold no pivot
-    # the masks by slot and by column act on the packed words, a word for
-    # 32 bytes of the unpacked operands
-    u_words = torch.where(live[..., None], Pw[..., :nbw], 0)
-    if preserve_l:
-        # the in-place pivot rows carry their own L multipliers at the
-        # *earlier* pivot columns; clear them (L E: L's columns moved to the
-        # pivot columns) to get the clean U rows
-        le = unpack_bits(Pw[..., nbw:], torch.int8).gather(
-            2, inv.clamp(max=nb - 1)[:, None, :].expand(-1, nb, -1))
-        pivots = pack_bits((~nopiv).to(torch.int8))[:, None, :]
-        u_words = torch.where(live[..., None],
-                              u_words ^ (pack_bits(le) & pivots), 0)
-        del le
-    u_clean = unpack_bits(u_words, torch.int8)
-    # U restricted to its pivot columns, in slot space (U E^T): unit upper
-    # triangular (the inverse reads its strict upper triangle only); T its
-    # inverse
-    upiv = u_clean.gather(2, cloc[:, None, :].expand(-1, nb, -1))
-    T = tri_inv(engine)(pack_bits(upiv) & pack_bits(live8)[:, None, :], True)
-    del upiv
-    # multipliers for every row below the window: lambda = X (E^T T), the
-    # row of E^T T at pivot column c T's row inv[c], zero elsewhere;
-    # eliminated panel values v = X ^ lambda wmat (preserve_l re-places
-    # lambda at the pivot columns, the reference's in-place L layout)
-    tz = torch.nn.functional.pad(T, (0, 0, 0, 1))
-    m_small = unpack_bits(tz.gather(1, inv[:, :, None].expand(-1, -1, nbw)),
-                          torch.int8)
-    wmat = u_clean
-    if preserve_l:                           # u_clean ^ E, in place
-        at = cloc[..., None]
-        wmat.scatter_(2, at, wmat.gather(2, at) ^ live8[..., None])
-    validcol = (col0 + slotv) < n
-    cmb = (nopiv & validcol) if miss_check else torch.zeros_like(live)
-    out = (m_small, wmat, cmb.to(torch.int8))
-    return tuple(x[0] for x in out) if single else out
+def post_operands(engine: str):
+    """The below-window elimination's operands (m_small = E^T T, wmat, the
+    column mask; ops/hopper_operands.py): the kernel's wrapper (the plain
+    version on a CPU tensor), or the plain version everywhere."""
+    return post_operands_plain if engine == "plain" else post_operands_hopper
 
 
 def run_panel_loop(panel_words: torch.Tensor, r, base: int, t: int, m: int,
@@ -214,8 +154,8 @@ def _sweep(data: torch.Tensor, m: int, n: int, nb: int, preserve_l: bool,
     A[: data.shape[0], : data.shape[1]] = data
     P = torch.arange(m_pad, dtype=torch.int32, device=dev)
     Q = torch.arange(n_pad, dtype=torch.int32, device=dev)
-    slotv = torch.arange(nb, dtype=torch.int32, device=dev)
     post = panel_post_hopper if hopper else panel_post_plain
+    operands = post_operands(engine)
     inverse = tri_inv(engine)
     tiles_j = -(-w_pad // TILE_WORDS)
     dyn = dyn_skip and m_pad % TILE_ROWS == 0 and w_pad % TILE_WORDS == 0
@@ -245,10 +185,9 @@ def _sweep(data: torch.Tensor, m: int, n: int, nb: int, preserve_l: bool,
             # bare below-window 1 is legitimate and the miss check is
             # disabled.
             with spans.span("panel.operands"):
-                live = slotv < r_f - r_in
-                m_small, wmat, cmb = post_operands(
-                    ALw[:nb], live, q_f - t * nb, t * nb, n, preserve_l,
-                    slotv, not search_window, engine)
+                m_small, wmat, cmb = operands(
+                    ALw[:nb], r_f, r_in, q_f, t * nb, t * nb, n, preserve_l,
+                    not search_window)
             with spans.span("panel.post"):
                 vw_full, lamw_full, miss = post(Xw, m_small, wmat, cmb,
                                                 r_in + W, m)

@@ -191,7 +191,7 @@ def test_kernel_spans_carry_host_operands(single):
         got = _recorded(lambda: mt.block_factor(a, True, nb=32,
                                                 engine="hopper"))
         want = {("panel.loop", "kernel.panel_loop_hopper"),
-                ("panel.operands", "kernel.unit_tri_inv_hopper"),
+                ("panel.operands", "kernel.post_operands_hopper"),
                 ("panel.post", "kernel.panel_post_hopper"),
                 ("panel.u_rows", "kernel.unit_tri_inv_hopper"),
                 ("panel.u_rows", "kernel.gf2_mul_hopper"),
@@ -201,7 +201,7 @@ def test_kernel_spans_carry_host_operands(single):
         got = _recorded(lambda: batched.block_factor_batched(
             h, 200, True, nb=32, engine="hopper"))
         want = {("panel.loop", "kernel.panel_loop_hopper_batched"),
-                ("panel.operands", "kernel.unit_tri_inv_hopper"),
+                ("panel.operands", "kernel.post_operands_hopper"),
                 ("panel.post", "kernel.panel_post_hopper_batched"),
                 ("panel.u_rows", "kernel.unit_tri_inv_hopper"),
                 ("panel.u_rows", "kernel.gf2_schur_update_batched_hopper"),
@@ -214,11 +214,15 @@ def test_kernel_spans_carry_host_operands(single):
     inverses = [s.attrs for s in got
                 if s.name == "kernel.unit_tri_inv_hopper"]
     batch = 1 if single else 3
-    # a T a panel (upper) and an L11^{-1} a panel but the last (lower)
-    assert inverses[:2] == [dict(batch=batch, n=32, upper=1),
-                            dict(batch=batch, n=32, upper=0)]
-    assert sum(a["upper"] for a in inverses) == (5 if single else 7)
-    assert len(inverses) == (9 if single else 13)
+    # T = U_piv^{-1} is taken inside the operands' wrapper: one operands
+    # call a panel, and an L11^{-1} (lower) a panel but the last
+    operands = [s.attrs for s in got
+                if s.name == "kernel.post_operands_hopper"]
+    assert operands == [dict(batch=batch, nb=32, preserve_l=1)] * (
+        5 if single else 7)
+    assert inverses[:2] == [dict(batch=batch, n=32, upper=0)] * 2
+    assert sum(a["upper"] for a in inverses) == 0
+    assert len(inverses) == (4 if single else 6)
     if single:
         schur = [s.attrs for s in got
                  if s.name == "kernel.gf2_schur_update_hopper"]
@@ -328,5 +332,5 @@ def test_rank_batched_kernel_spans_nest_in_its_phases(card):
     assert roots == ["rank_batched"]
     assert {e for e in edges if e[1].startswith("kernel.")} == {
         ("panel.loop", "kernel.panel_loop_hopper_batched"),
-        ("panel.operands", "kernel.unit_tri_inv_hopper"),
+        ("panel.operands", "kernel.post_operands_hopper"),
         ("panel.post", "kernel.panel_post_hopper_batched")}

@@ -3,6 +3,7 @@
 The same numpy input goes into the JAX package and into the port (on the
 CPU); outputs are compared word for word.  GF(2) is exact: tolerance 0."""
 
+import os
 import pickle
 import types
 
@@ -19,6 +20,15 @@ from m4ri_tpu_torch.core.bitmatrix import padding_mask
 
 import oracle
 from conftest import random_dense
+
+# Under pytest-xdist the workers share the machine's cores: give each its
+# share for PyTorch's intra-op threads, not a thread a core, which
+# oversubscribes the cores several times over and slows the port's tests two-
+# to threefold.  Every worker collects every test module, so this import sets
+# it for all of the port's tests in that worker.
+_WORKERS = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+if _WORKERS > 1:
+    torch.set_num_threads(max(1, len(os.sched_getaffinity(0)) // _WORKERS))
 
 
 def both(a_np):

@@ -55,9 +55,9 @@ from ..ops.hopper_post import panel_post_batched_plain, panel_post_hopper_batche
 from ..ops.hopper_schur import (gf2_schur_update_batched_hopper,
                                 gf2_schur_update_plain)
 from ..utils import spans
-from ..utils.config import WORD_BITS, get_config
-from .ple import (ENGINES, _round_up, _row_ge_mask, panel_widths,
-                  post_operands, run_panel_loop, tri_inv)
+from ..utils.config import WORD_BITS
+from .ple import (ENGINES, _round_up, _row_ge_mask, default_engine,
+                  panel_widths, post_operands, run_panel_loop, tri_inv)
 
 __all__ = ["mul_packed_batched", "block_factor_batched", "rank_batched",
            "ple_batched", "pluq_batched"]
@@ -258,11 +258,9 @@ def block_factor_batched(data: torch.Tensor, ncols: int, preserve_l: bool,
     if w != width_for(ncols):
         raise ValueError(f"data has {w} words a row, {ncols} columns want "
                          f"{width_for(ncols)}")
-    cfg = get_config()
     nb, window = panel_widths(m, ncols, nb, window, search_window)
     if engine is None:
-        engine = "hopper" if (cfg.use_hopper_panel and data.is_cuda) \
-            else "plain"
+        engine = default_engine(data)
     if B == 0 or m == 0 or ncols == 0:
         dev = data.device
         ar = torch.arange

@@ -51,9 +51,7 @@ from ..ops.hopper_post import panel_post_hopper, panel_post_plain
 # the series stays importable from here for parallel/ (dist_ple, dist_echelon)
 from ..ops.hopper_trinv import _unit_upper_inv  # noqa: F401
 from ..ops.hopper_trinv import unit_tri_inv_hopper, unit_tri_inv_plain
-from ..ops.hopper_schur import (TILE_ROWS, TILE_WORDS,
-                                gf2_schur_update_dyn_hopper,
-                                gf2_schur_update_hopper,
+from ..ops.hopper_schur import (TILE_WORDS, gf2_schur_update_hopper,
                                 gf2_schur_update_plain)
 from ..ops.mul import exact_float32
 from ..utils import spans
@@ -127,17 +125,16 @@ def _write_panel_cols(A: torch.Tensor, panel_full: torch.Tensor, c0w: int):
 
 def _block_factor_impl(data: torch.Tensor, m: int, n: int, nb: int,
                        preserve_l: bool, search_window: int = 0,
-                       window: int = 0, engine: str = "plain",
-                       dyn_skip: bool = False):
+                       window: int = 0, engine: str = "plain"):
     if engine not in ENGINES:
         raise ValueError(f"engine={engine!r}, want one of {ENGINES}")
     with spans.span("sweep", m=m, n=n, nb=nb, window=window, batch=1):
         return _sweep(data, m, n, nb, preserve_l, search_window, window,
-                      engine, dyn_skip)
+                      engine)
 
 
 def _sweep(data: torch.Tensor, m: int, n: int, nb: int, preserve_l: bool,
-           search_window: int, window: int, engine: str, dyn_skip: bool):
+           search_window: int, window: int, engine: str):
     hopper = engine == "hopper"
     dev = data.device
     nbw = nb // WORD_BITS
@@ -158,7 +155,6 @@ def _sweep(data: torch.Tensor, m: int, n: int, nb: int, preserve_l: bool,
     operands = post_operands(engine)
     inverse = tri_inv(engine)
     tiles_j = -(-w_pad // TILE_WORDS)
-    dyn = dyn_skip and m_pad % TILE_ROWS == 0 and w_pad % TILE_WORDS == 0
     # the panel's U rows, written anew each panel: one buffer for the sweep
     up = torch.empty((nb, w_pad), dtype=torch.int32, device=dev)
 
@@ -248,8 +244,6 @@ def _sweep(data: torch.Tensor, m: int, n: int, nb: int, preserve_l: bool,
             with spans.span("panel.schur"):
                 if not hopper:
                     gf2_schur_update_plain(A, Lpw, up)
-                elif dyn:
-                    gf2_schur_update_dyn_hopper(A, Lpw, up, r_in, c0n)
                 else:
                     # t is known here, so the finished column tiles are not
                     # launched
@@ -258,6 +252,12 @@ def _sweep(data: torch.Tensor, m: int, n: int, nb: int, preserve_l: bool,
                         col_tile_skip=min(c0n // TILE_WORDS, tiles_j - 1))
     return (A[:m, : data.shape[1]].contiguous(), P[:m].contiguous(),
             Q[:n].contiguous(), r)
+
+
+def default_engine(t: torch.Tensor) -> str:
+    """The sweeps' engine for a tensor: "hopper" on the card, "plain"
+    elsewhere."""
+    return "hopper" if t.is_cuda else "plain"
 
 
 def panel_widths(nrows: int, ncols: int, nb: int | None = None,
@@ -294,13 +294,11 @@ def block_factor(a: BitMatrix, preserve_l: bool, nb: int | None = None,
     on the card, where each kernel launches or raises; on a CPU matrix the
     same wrappers run their plain versions) or "plain" (plain PyTorch
     everywhere; the default for a matrix on the CPU)."""
-    cfg = get_config()
     nb, window = panel_widths(a.nrows, a.ncols, nb, window, search_window)
     if engine is None:
-        engine = "hopper" if (cfg.use_hopper_panel and a.data.is_cuda) \
-            else "plain"
+        engine = default_engine(a.data)
     return _block_factor_impl(a.data, a.nrows, a.ncols, nb, preserve_l,
-                              search_window, window, engine, cfg.schur_dyn)
+                              search_window, window, engine)
 
 
 def _compress_l_seq(data: torch.Tensor, q: torch.Tensor, r: int, m: int,

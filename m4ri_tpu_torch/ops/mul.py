@@ -118,14 +118,15 @@ def _route(m: int, kw: int, nw: int, cfg) -> str:
     kp = kw * WORD_BITS
     # Shallow contractions: the matmul path would write an m x n float32
     # product to device memory, 32 times the packed result.
-    if cfg.use_hopper_schur and kw <= 32 and m >= 2048 and nw >= 128:
+    if kw <= 32 and m >= 2048 and nw >= 128:
         return "hopper"
     # Large products: contractions of more than one chunk go to the
     # split-contraction kernel, single-chunk ones stay with the kernel that
-    # writes C once.
-    if (cfg.use_hopper_big and m >= 2048 and nw >= 128
+    # writes C once (both routes timed in turns on an H100 at 4096^3 to
+    # 16384^3 and 8192 x 512 x 8192: the gate at 64 words held).
+    if (m >= 2048 and nw >= 128
             and max(m, kp, nw * WORD_BITS) >= cfg.hopper_big_min):
-        return "hopper_v2" if cfg.use_hopper_v2 and kw > 64 else "hopper"
+        return "hopper_v2" if kw > 64 else "hopper"
     return "matmul"
 
 

@@ -33,7 +33,7 @@ import torch
 
 from ..core.bitmatrix import BitMatrix, mask_padding, width_for
 from ..models.ple import (_compress_l_impl, _dot2, _round_up, _unit_upper_inv,
-                          run_panel_loop)
+                          default_engine, run_panel_loop)
 from ..ops.mul import mul_packed_data, pack_bits, unpack_bits
 from ..utils import spans
 from ..utils.config import WORD_BITS, get_config
@@ -196,8 +196,7 @@ def dist_block_factor(a: BitMatrix, mesh, preserve_l: bool, nb: int = 128,
         window = cfg.panel_window
     window = max(min(window, _round_up(a.nrows, nb)), nb)
     if engine is None:
-        engine = "hopper" if (cfg.use_hopper_panel and a.data.is_cuda) \
-            else "plain"
+        engine = default_engine(a.data)
     return _dist_factor_impl(a.data, a.nrows, a.ncols, nb, window,
                              preserve_l, engine, mesh)
 

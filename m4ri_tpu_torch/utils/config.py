@@ -3,11 +3,13 @@
 The reference library derives every algorithmic cutoff from CPU cache sizes
 detected at configure time (reference: configure.ac:198-219, misc.h:569-599,
 strassen.h:133-135).  Here ``get_config()`` inspects ``torch.cuda`` once and
-derives the knobs the multiply and factorization paths read: block sizes
+derives the constants the multiply and factorization paths read: block sizes
 bounding the unpacked float32 intermediates of the blocked ``torch.matmul``
 path, the Strassen crossover, the gates that route a product to the
-hand-written Hopper kernels, and the panel widths of the PLE sweep.  Every field can be overridden with an ``M4RI_TPU_TORCH_<FIELD>``
-environment variable.
+hand-written Hopper kernels, and the panel widths of the PLE sweep.  The
+fields are constants derived from the device; nothing a user sets at run
+time reaches them.  Whether a kernel runs at all is decided by where its tensor
+lives (``is_cuda``), not by a field.
 
 All sizes are in *bits* (matrix dimensions) unless noted.
 """
@@ -16,7 +18,6 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import os
 
 WORD_BITS = 32  # words are int32 tensors; the reference uses 64 (misc.h:87).
 
@@ -41,17 +42,9 @@ class Config:
     strassen_max_levels: int = 2
     # A third level engages at min-dim >= this.
     strassen_depth3_min: int = 65536
-    # Route shallow products (kw <= 32 words, m >= 2048, nw >= 128) to
-    # gf2_mul_hopper (ops/hopper_mul.py): the matmul path would write an
-    # m x n float32 product to device memory first.
-    use_hopper_schur: bool = True
-    # Route large products (m >= 2048, nw >= 128, max-dim >= hopper_big_min)
-    # to the Hopper kernels.
-    use_hopper_big: bool = True
+    # On the card, large products (m >= 2048, nw >= 128, max-dim >=
+    # hopper_big_min) go to the Hopper kernels (ops/mul.py::_route).
     hopper_big_min: int = 4096
-    # Of those, contractions deeper than 64 words go to gf2_mul_hopper_v2
-    # (ops/hopper_mul2.py), the split-contraction kernel.
-    use_hopper_v2: bool = True
     # Panel width of the blocked PLE / echelonization sweep, and the height
     # of the row window its sequential pivot loop runs on (models/ple.py).
     # A window that goes rank-deficient is detected exactly and the panel is
@@ -62,12 +55,6 @@ class Config:
     panel_width_big: int = 1024
     panel_window_big: int = 1088
     panel_width_big_min: int = 32768
-    # Take the persistent Schur kernel, which derives its tile range from the
-    # bounds on the device (ops/hopper_schur.py), instead of the gridded one.
-    schur_dyn: bool = False
-    # On the card, run the factorization through the hand-written kernels
-    # (engine "hopper" of models/ple.py); off, the plain PyTorch engine.
-    use_hopper_panel: bool = True
     # TRSM / TRTRI recursion (models/triangular.py): blocks of at most
     # trsm_base are inverted whole (ops/hopper_trinv.py); a B at least a
     # quarter as wide as T substitutes down to trsm_wide_base, then inverts
@@ -81,41 +68,24 @@ class Config:
     derived_from: str = "default"
 
 
-def _env_overrides(cfg: Config) -> Config:
-    updates = {}
-    for f in dataclasses.fields(Config):
-        raw = os.environ.get(f"M4RI_TPU_TORCH_{f.name.upper()}")
-        if raw is None:
-            continue
-        if f.type in ("int", int):
-            updates[f.name] = int(raw)
-        elif f.type in ("float", float):
-            updates[f.name] = float(raw)
-        elif f.type in ("bool", bool):
-            updates[f.name] = raw.lower() in ("1", "true", "yes", "on")
-        else:
-            updates[f.name] = raw
-    return dataclasses.replace(cfg, **updates) if updates else cfg
-
-
 def _derive() -> Config:
     """Inspect the device (reference analogue: configure-time cache
-    detection).  With a card the defaults stand; without one the kernel
-    gates are off and the one-matmul products are smaller."""
+    detection).  With a card the defaults stand; without one the
+    one-matmul products are smaller."""
     import torch
     if torch.cuda.is_available():
-        # Strassen measured on an H100 (benches/tune_cutoffs.py): the direct
-        # kernel product wins at 16384 and 32768, one level over 32768 bases
-        # wins at 65536, two levels lose there; so a level only where its
-        # base products stay at 32768 or more
+        # Strassen measured on an H100 80GB HBM3 at 700 W (direct / one
+        # level / two levels): 0.73-0.75 / 1.03-1.06 / 2.67-2.92 ms at
+        # 16384, 5.18-5.35 / 5.56-5.70 / 7.23-7.32 at 32768, 45.3 / 41.5 /
+        # 41.6-44.1 at 65536; so a level only where its base products stay
+        # at 32768 or more
         return Config(strassen_cutoff=32768, strassen_depth3_min=262144,
                       derived_from=f"cuda:{torch.cuda.get_device_name(0)}")
-    return Config(use_hopper_schur=False, use_hopper_big=False,
-                  use_hopper_panel=False, mul_block_k=4096, mul_block_m=4096,
+    return Config(mul_block_k=4096, mul_block_m=4096,
                   mul_block_threshold=4096, strassen_cutoff=4096,
                   derived_from="cpu")
 
 
 @functools.lru_cache(maxsize=1)
 def get_config() -> Config:
-    return _env_overrides(_derive())
+    return _derive()

@@ -2,8 +2,8 @@
 (models/batched_solve.py) against ``jax.vmap`` of the JAX package's
 ``trsm_*`` / ``trtri_*`` on the same numpy inputs, on the CPU, and element by
 element against the port's single-matrix calls.  ``trsm_base`` and
-``trsm_wide_base`` are shrunk through the environment, as a user would set
-them, so the batched recursion runs several levels: substitution to the base
+``trsm_wide_base`` are shrunk in the port's config (the ``config_fields``
+fixture), so the batched recursion runs several levels: substitution to the base
 for a narrow B, to the wide base and then the inverse for a wide one.  The
 solutions are unique, so the JAX package's own bases give the same words.
 Junk lies in the other triangle of every T.  Tolerance 0."""
@@ -17,28 +17,21 @@ import jax
 import m4ri_tpu_torch as mt
 from m4ri_tpu.core.bitmatrix import BitMatrix as JBitMatrix
 from m4ri_tpu.models import triangular as jtri
-from m4ri_tpu_torch.utils import config as tconfig
 
 import oracle
 from conftest import random_dense
 from test_trsm import unit_upper
-from torch_port import Waits, same, stacks, with_bit31
+from torch_port import (Waits, config_fields, same,  # noqa: F401 (a fixture)
+                        stacks, with_bit31)
 
 LEFT = ("trsm_upper_left", "trsm_lower_left")
 RIGHT = ("trsm_upper_right", "trsm_lower_right")
 
 
 @pytest.fixture
-def small_bases(monkeypatch):
-    """trsm_base 64 and trsm_wide_base 128, set as a user would."""
-    monkeypatch.setenv("M4RI_TPU_TORCH_TRSM_BASE", "64")
-    monkeypatch.setenv("M4RI_TPU_TORCH_TRSM_WIDE_BASE", "128")
-    tconfig.get_config.cache_clear()
-    cfg = tconfig.get_config()
-    assert (cfg.trsm_base, cfg.trsm_wide_base) == (64, 128)
-    yield
-    monkeypatch.undo()
-    tconfig.get_config.cache_clear()
+def small_bases(config_fields):
+    """trsm_base 64 and trsm_wide_base 128 in the port's config."""
+    config_fields(trsm_base=64, trsm_wide_base=128)
 
 
 def triangles(rng, name, B, n):

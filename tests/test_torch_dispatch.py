@@ -4,6 +4,8 @@ shrunken Config thresholds, with spies on the two kernel wrappers asserting
 *which* engine ran.  The "is on the card" test is patched, so the routing
 runs on CPU tensors, where the wrappers take their plain versions."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -11,6 +13,7 @@ import m4ri_tpu_torch as mt
 from m4ri_tpu_torch.ops import hopper_mul, hopper_mul2
 from m4ri_tpu_torch.ops import mul as mulmod
 from m4ri_tpu_torch.ops import strassen as strmod
+from m4ri_tpu_torch.utils import config as cfgmod
 from m4ri_tpu_torch.utils.config import Config
 
 from conftest import random_dense
@@ -68,16 +71,8 @@ def test_dispatch_hopper_big_deep(rng, calls):
 
 def test_dispatch_hopper_big_single_chunk(rng, calls):
     """kw = 64 sits exactly at the single-chunk gate: stays on v1."""
-    cfg = Config(mul_block_threshold=512, hopper_big_min=1024,
-                 use_hopper_schur=False)
+    cfg = Config(mul_block_threshold=512, hopper_big_min=1024)
     _product(random_dense(rng, 2048, 2048), random_dense(rng, 2048, 4096), cfg)
-    assert [c[0] for c in calls] == ["hopper"]
-
-
-def test_dispatch_v2_switched_off(rng, calls):
-    cfg = Config(mul_block_threshold=1024, hopper_big_min=1024,
-                 use_hopper_v2=False)
-    _product(random_dense(rng, 2048, 2080), random_dense(rng, 2080, 4096), cfg)
     assert [c[0] for c in calls] == ["hopper"]
 
 
@@ -101,19 +96,18 @@ def test_dispatch_not_on_card(rng, calls, monkeypatch):
 
 
 def test_dispatch_blocked_matmul(rng, calls):
-    """Above-threshold with the kernel routes disabled: the depth/row
-    blocked matmul path (partial-parity XOR combining)."""
-    cfg = Config(mul_block_threshold=64, mul_block_m=64, mul_block_k=64,
-                 use_hopper_schur=False, use_hopper_big=False)
+    """Above-threshold and below the kernels' gates (m < 2048): the
+    depth/row blocked matmul path (partial-parity XOR combining)."""
+    cfg = Config(mul_block_threshold=64, mul_block_m=64, mul_block_k=64)
     _product(random_dense(rng, 100, 200), random_dense(rng, 200, 90), cfg)
     assert calls == []
 
 
 @pytest.mark.parametrize("n", [96, 128, 160])
 def test_dispatch_threshold_straddle(rng, calls, n):
-    """One word below / at / above mul_block_threshold, all bit-exact."""
-    cfg = Config(mul_block_threshold=128, mul_block_m=64, mul_block_k=64,
-                 use_hopper_schur=False, use_hopper_big=False)
+    """One word below / at / above mul_block_threshold, all bit-exact
+    (below the kernels' gates: m < 2048)."""
+    cfg = Config(mul_block_threshold=128, mul_block_m=64, mul_block_k=64)
     _product(random_dense(rng, n, n), random_dense(rng, n, n), cfg)
     assert calls == []
 
@@ -157,15 +151,18 @@ def test_strassen_engagement_seam(rng, monkeypatch):
         assert (len(rec_calls) > 0) == engaged, (n, rec_calls)
 
 
-def test_config_env_overrides(monkeypatch):
-    from m4ri_tpu_torch.utils import config as cfgmod
-    monkeypatch.setenv("M4RI_TPU_TORCH_STRASSEN_CUTOFF", "1234")
-    monkeypatch.setenv("M4RI_TPU_TORCH_USE_HOPPER_V2", "0")
+@pytest.mark.parametrize("field", ["STRASSEN_CUTOFF", "TRSM_BASE",
+                                   "PANEL_WIDTH"])
+def test_config_ignores_the_environment(monkeypatch, field):
+    """No variable of the environment reaches the config: with
+    M4RI_TPU_TORCH_<FIELD> set, get_config() is still the config derived
+    from the device, field for field."""
+    other = getattr(cfgmod._derive(), field.lower()) * 2
+    monkeypatch.setenv(f"M4RI_TPU_TORCH_{field}", str(other))
     cfgmod.get_config.cache_clear()
     try:
         cfg = cfgmod.get_config()
-        assert cfg.strassen_cutoff == 1234 and cfg.use_hopper_v2 is False
-        assert cfg.derived_from == "cpu" and not cfg.use_hopper_big
     finally:
-        monkeypatch.undo()
         cfgmod.get_config.cache_clear()
+    assert getattr(cfg, field.lower()) != other
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(cfgmod._derive())

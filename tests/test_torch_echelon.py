@@ -17,7 +17,8 @@ import oracle
 from conftest import random_dense
 from ref_top_model import top_echelonize_model
 from test_elimination import SIZES, _echelon_form
-from torch_port import assert_padding_zero, assert_same, both, with_bit31
+from torch_port import (assert_padding_zero, assert_same, both,
+                        config_fields, with_bit31)  # noqa: F401 (a fixture)
 
 
 @pytest.mark.parametrize("m,n", SIZES)
@@ -78,9 +79,10 @@ def test_elimination_paths_agree_with_jax(rng, m, n):
         np.testing.assert_array_equal(mt.to_numpy(Rt), expect)
 
 
-def test_heuristic_crossover_is_a_float_config_field(rng, monkeypatch):
-    """Config.echelon_density_crossover (a float, overridable from the
-    environment) decides the strategy; both give the same bits."""
+def test_heuristic_crossover_is_a_float_config_field(rng, monkeypatch,
+                                                     config_fields):
+    """Config.echelon_density_crossover (a float) decides the strategy;
+    both give the same bits."""
     assert tconfig.get_config().echelon_density_crossover == 0.15
     a = random_dense(rng, 90, 70, density=0.3)
     T = mt.from_numpy(a, device="cpu")
@@ -89,16 +91,11 @@ def test_heuristic_crossover_is_a_float_config_field(rng, monkeypatch):
     monkeypatch.setattr(tech, "echelonize_pluq",
                         lambda *args, **kw: calls.append(1) or real(*args, **kw))
     want, _ = tech.echelonize(T, strategy="m4ri")
-    for crossover, pluq in (("0.5", False), ("0.25", True)):
-        monkeypatch.setenv("M4RI_TPU_TORCH_ECHELON_DENSITY_CROSSOVER", crossover)
-        tconfig.get_config.cache_clear()
-        try:
-            assert tconfig.get_config().echelon_density_crossover == float(crossover)
-            calls.clear()
-            got, _ = tech.echelonize(T, strategy="heuristic")
-        finally:
-            monkeypatch.delenv("M4RI_TPU_TORCH_ECHELON_DENSITY_CROSSOVER")
-            tconfig.get_config.cache_clear()
+    for crossover, pluq in ((0.5, False), (0.25, True)):
+        config_fields(echelon_density_crossover=crossover)
+        assert tconfig.get_config().echelon_density_crossover == crossover
+        calls.clear()
+        got, _ = tech.echelonize(T, strategy="heuristic")
         assert bool(calls) is pluq
         assert torch.equal(got.data, want.data)
 

@@ -39,7 +39,7 @@ def test_the_walk_sees_the_port():
             "hopper_panel.py", "hopper_post.py", "ple.py", "echelon.py",
             "spans.py", "graycode.py", "bitops.py", "permutation.py",
             "triangular.py", "solve.py", "split_solve.py",
-            "tune_cutoffs.py", "m4rm.py", "djb.py", "io.py", "compat.py",
+            "m4rm.py", "djb.py", "io.py", "compat.py",
             "build.py", "mesh.py", "dist_mul.py", "dist_echelon.py",
             "dist_ple.py", "dist_solve.py", "_spawn.py", "dryrun.py",
             "batched.py"} <= names

@@ -17,6 +17,7 @@ from m4ri_tpu.models import echelon as jechelon
 from m4ri_tpu.models import ple as jple
 from m4ri_tpu.utils.config import get_config as jget_config
 from m4ri_tpu_torch.models import ple as tple
+from m4ri_tpu_torch.ops import hopper_schur
 from m4ri_tpu_torch.utils import config as tconfig
 from m4ri_tpu_torch.utils.rng import GlibcRandom, reference_random_data
 from m4ri_tpu_torch.utils.spans import counts
@@ -110,42 +111,53 @@ def test_block_factor_counts_its_read_backs(rng):
     assert counts().get("readback.block_factor", 0) - syncs == panels + missed
 
 
-def test_block_factor_default_engine_and_bad_engine(rng):
+def _factor_single(A, **kw):
+    return mt.block_factor(A, preserve_l=True, nb=32, **kw)
+
+
+def _factor_batched(A, **kw):
+    stack = torch.stack([A.data, A.data.flip(0)])
+    return mt.block_factor_batched(stack, A.ncols, preserve_l=True, nb=32,
+                                   **kw)
+
+
+@pytest.mark.parametrize("factor", [_factor_single, _factor_batched],
+                         ids=["block_factor", "block_factor_batched"])
+def test_block_factor_default_engine_and_bad_engine(rng, factor):
+    """engine=None on CPU tensors is the plain engine (models/ple.py::
+    default_engine), word for word; an engine outside ENGINES raises."""
     A = mt.from_numpy(_dense(rng), device="cpu")
-    a = mt.block_factor(A, preserve_l=True, nb=32)           # CPU: "plain"
-    b = mt.block_factor(A, preserve_l=True, nb=32, engine="plain")
+    assert tple.default_engine(A.data) == "plain"
+    a = factor(A)
+    b = factor(A, engine="plain")
     for x, y in zip(a[:3], b[:3]):
         assert torch.equal(x, y)
     with pytest.raises(ValueError):
-        mt.block_factor(A, preserve_l=True, engine="xla")
+        factor(A, engine="xla")
 
 
-def test_block_factor_schur_dyn(rng, monkeypatch):
-    """With Config.schur_dyn the sweep takes the persistent Schur kernel's
-    wrapper where the padded shape is whole tiles, and stays bit-identical."""
+def test_single_sweep_takes_the_gridded_schur_update(rng, monkeypatch):
+    """The single sweep's engine "hopper" (the wrappers' plain versions on
+    the CPU) updates the trailing matrix through the gridded Schur wrapper,
+    once a panel but the last; the persistent one is never called; the
+    factors are the JAX package's."""
     a = random_dense(rng, 300, 256)
     a[40:170] = 0
     J, T = both(a)
     want = jple.block_factor(J, preserve_l=True, nb=128, engine="xla")
     calls = []
-    real = tple.gf2_schur_update_dyn_hopper
-    monkeypatch.setattr(tple, "gf2_schur_update_dyn_hopper",
-                        lambda *args: calls.append(1) or real(*args))
-    monkeypatch.setenv("M4RI_TPU_TORCH_SCHUR_DYN", "1")
-    tconfig.get_config.cache_clear()
-    try:
-        assert tconfig.get_config().schur_dyn
-        got = mt.block_factor(T, preserve_l=True, nb=128, engine="hopper")
-        # 96 columns pad to 3 words: not whole tiles, so the gridded kernel
-        small = mt.block_factor(mt.from_numpy(a[:, :96], device="cpu"),
-                                preserve_l=True, nb=32, engine="hopper")
-    finally:
-        monkeypatch.delenv("M4RI_TPU_TORCH_SCHUR_DYN")
-        tconfig.get_config.cache_clear()
-    _assert_factor_equal(want, got, "schur_dyn")
-    # one a panel but the last, which leaves no column to update
-    assert len(calls) == 1
-    assert small[3] == oracle.rank(a[:, :96])
+    real = tple.gf2_schur_update_hopper
+    monkeypatch.setattr(tple, "gf2_schur_update_hopper",
+                        lambda *args, **kw: calls.append("grid")
+                        or real(*args, **kw))
+    real_dyn = hopper_schur.gf2_schur_update_dyn_hopper
+    monkeypatch.setattr(hopper_schur, "gf2_schur_update_dyn_hopper",
+                        lambda *args, **kw: calls.append("dyn")
+                        or real_dyn(*args, **kw))
+    got = mt.block_factor(T, preserve_l=True, nb=128, engine="hopper")
+    _assert_factor_equal(want, got, "hopper engine")
+    # two panels: one update, none after the last, which leaves no column
+    assert calls == ["grid"]
 
 
 @pytest.mark.parametrize("case", ["dense", "zeroed_band", "low_rank",
@@ -282,9 +294,7 @@ def test_config_carries_the_panel_fields():
     assert (cfg.panel_width, cfg.panel_window) == (512, 576)
     assert (cfg.panel_width_big, cfg.panel_window_big,
             cfg.panel_width_big_min) == (1024, 1088, 32768)
-    assert cfg.schur_dyn is False
-    assert cfg.use_hopper_panel is torch.cuda.is_available()   # card only
     jcfg = jget_config()
     for name in ("panel_width", "panel_window", "panel_width_big",
-                 "panel_window_big", "panel_width_big_min", "schur_dyn"):
+                 "panel_window_big", "panel_width_big_min"):
         assert getattr(cfg, name) == getattr(jcfg, name), name

@@ -13,11 +13,11 @@ import m4ri_tpu_torch as mt
 from m4ri_tpu.models import ple as jple
 from m4ri_tpu.models import solve as jsolve
 from m4ri_tpu_torch.models import solve as tsolve
-from m4ri_tpu_torch.utils import config as tconfig
 
 import oracle
 from conftest import random_dense
-from torch_port import assert_padding_zero, assert_same, both, with_bit31
+from torch_port import (assert_padding_zero, assert_same, both,
+                        config_fields, with_bit31)  # noqa: F401 (a fixture)
 
 
 def _low_rank(rng, m, n, k):
@@ -67,21 +67,15 @@ def test_solve_inconsistent_equals_jax(rng):
     assert_same(Xj, Xt)
 
 
-def test_solve_with_a_deep_trsm_recursion_equals_jax(rng, monkeypatch):
+def test_solve_with_a_deep_trsm_recursion_equals_jax(rng, config_fields):
     """With trsm_base shrunk, both triangular solves of the solver recurse
     several levels; the bits stay the JAX package's."""
-    monkeypatch.setenv("M4RI_TPU_TORCH_TRSM_BASE", "32")
-    monkeypatch.setenv("M4RI_TPU_TORCH_TRSM_WIDE_BASE", "64")
-    tconfig.get_config.cache_clear()
-    try:
-        a = random_dense(rng, 200, 150)
-        b = oracle.mul(a, random_dense(rng, 150, 20)).astype(np.uint8)
-        (Aj, At), (Bj, Bt) = both(a), both(b)
-        Xj, okj = jsolve.solve_left(Aj, Bj)
-        Xt, okt = mt.solve_left(At, Bt)
-    finally:
-        monkeypatch.undo()
-        tconfig.get_config.cache_clear()
+    config_fields(trsm_base=32, trsm_wide_base=64)
+    a = random_dense(rng, 200, 150)
+    b = oracle.mul(a, random_dense(rng, 150, 20)).astype(np.uint8)
+    (Aj, At), (Bj, Bt) = both(a), both(b)
+    Xj, okj = jsolve.solve_left(Aj, Bj)
+    Xt, okt = mt.solve_left(At, Bt)
     assert_same(Xj, Xt)
     assert bool(okt) and bool(okj)
 

@@ -18,23 +18,17 @@ from m4ri_tpu_torch.utils import config as tconfig
 import oracle
 from conftest import random_dense
 from test_trsm import SIZES, unit_upper
-from torch_port import assert_padding_zero, assert_same, both, with_bit31
+from torch_port import (assert_padding_zero, assert_same, both,
+                        config_fields, with_bit31)  # noqa: F401 (a fixture)
 
 LEFT = ("trsm_upper_left", "trsm_lower_left")
 RIGHT = ("trsm_upper_right", "trsm_lower_right")
 
 
 @pytest.fixture
-def small_bases(monkeypatch):
-    """trsm_base 64 and trsm_wide_base 128, set as a user would."""
-    monkeypatch.setenv("M4RI_TPU_TORCH_TRSM_BASE", "64")
-    monkeypatch.setenv("M4RI_TPU_TORCH_TRSM_WIDE_BASE", "128")
-    tconfig.get_config.cache_clear()
-    cfg = tconfig.get_config()
-    assert (cfg.trsm_base, cfg.trsm_wide_base) == (64, 128)
-    yield
-    monkeypatch.undo()
-    tconfig.get_config.cache_clear()
+def small_bases(config_fields):
+    """trsm_base 64 and trsm_wide_base 128 in the port's config."""
+    config_fields(trsm_base=64, trsm_wide_base=128)
 
 
 def _operands(rng, name, n, other, junk=False):

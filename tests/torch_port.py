@@ -3,11 +3,13 @@
 The same numpy input goes into the JAX package and into the port (on the
 CPU); outputs are compared word for word.  GF(2) is exact: tolerance 0."""
 
+import dataclasses
 import os
 import pickle
 import types
 
 import numpy as np
+import pytest
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -17,6 +19,7 @@ import jax.numpy as jnp
 import m4ri_tpu as mj
 import m4ri_tpu_torch as mt
 from m4ri_tpu_torch.core.bitmatrix import padding_mask
+from m4ri_tpu_torch.utils import config as tconfig
 
 import oracle
 from conftest import random_dense
@@ -29,6 +32,27 @@ from conftest import random_dense
 _WORKERS = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
 if _WORKERS > 1:
     torch.set_num_threads(max(1, len(os.sched_getaffinity(0)) // _WORKERS))
+
+
+@pytest.fixture
+def config_fields(monkeypatch):
+    """``config_fields(**fields)``: for the rest of the test the port's
+    config is the derived one with these fields replaced (``_derive``
+    patched, ``get_config``'s cache cleared now and at teardown).  A test
+    module takes it by importing the name."""
+    derive = tconfig._derive
+
+    def apply(**fields):
+        monkeypatch.setattr(tconfig, "_derive",
+                            lambda: dataclasses.replace(derive(), **fields))
+        tconfig.get_config.cache_clear()
+        cfg = tconfig.get_config()
+        assert all(getattr(cfg, k) == v for k, v in fields.items()), cfg
+        return cfg
+
+    tconfig.get_config.cache_clear()
+    yield apply
+    tconfig.get_config.cache_clear()
 
 
 def both(a_np):

@@ -96,8 +96,9 @@ from m4ri_tpu_torch.benches.split_batched import trace as device_trace
 from m4ri_tpu_torch.core import permutation as perm_mod
 from m4ri_tpu_torch.core.bitmatrix import BitMatrix, mask_padding
 from m4ri_tpu_torch.models import ple as ple_mod
-from m4ri_tpu_torch.ops import (_build, hopper_operands, hopper_panel,
-                                hopper_post, hopper_schur, hopper_trinv)
+from m4ri_tpu_torch.ops import (_build, hopper_commit, hopper_operands,
+                                hopper_panel, hopper_post, hopper_schur,
+                                hopper_trinv)
 from m4ri_tpu_torch.ops.hopper_mul import gf2_mul_hopper, gf2_mul_plain
 from m4ri_tpu_torch.ops.hopper_mul2 import gf2_mul_hopper_v2
 from m4ri_tpu_torch.ops.hopper_panel import panel_loop_hopper, panel_loop_plain
@@ -168,6 +169,13 @@ KERNELS = {
         source="m4ri_tpu_torch/csrc/gf2_trinv_hopper.cu",
         replaces="none: the sweep's in-graph operand glue "
                  "(m4ri_tpu/models/ple.py:255-293), no pallas_call"),
+    # the batched sweep's commit of a panel
+    "panel_commit_hopper_batched": dict(
+        fn=hopper_commit.panel_commit_hopper_batched,
+        source="m4ri_tpu_torch/csrc/gf2_post_hopper.cu",
+        replaces="none: the sweep's dynamic_update_slices "
+                 "(m4ri_tpu/models/ple.py, _block_factor_impl), no "
+                 "pallas_call"),
 }
 GEMMS = ("gf2_mul_hopper", "gf2_mul_hopper_v2")
 SOURCES = ["gf2_gemm_hopper", "gf2_schur_hopper",
@@ -899,6 +907,81 @@ def phase_operands_kernel(rng) -> dict:
                                  timed_at=list(OPERANDS_SHAPES[0]),
                                  checked=checked, shapes=shapes)}
     emit("kernels_operands", kernels=list(report.values()))
+    return report
+
+
+# (batch, rows, columns, panel) of the commit's timed shapes: one
+# nist_sp800_22.rank call and mceliece348864.keygen's panels 1-3
+COMMIT_SHAPES = [(976_000, 32, 32, 0), (1024, 768, 3488, 0),
+                 (1024, 768, 3488, 1), (1024, 768, 3488, 2)]
+
+
+def commit_bound(ops) -> dict:
+    """Least time for the commit of ``ops`` (what the sweep hands the
+    wrapper): every word it must move read once and written once.  For
+    each element that did not miss: ALw's window rows below m in (2 nbw
+    words a row) and A's and lam's panel words out; v's rows below the
+    window in and A's out; the moved window rows' words outside the panel
+    in and out; p_f / q_f in and P / Q out at the pivot slots; the window's
+    permutation read where a word lies outside the panel."""
+    A, vw, rpw, r_f, r_in, miss, m = (ops[0], ops[3], ops[6], ops[9],
+                                      ops[10], ops[11], ops[14])
+    w_pad, nbw, W = A.shape[2], vw.shape[2], rpw.shape[1]
+    hit = ~miss
+    below_m = (m - r_in).clamp(min=0)
+    win = torch.minimum(below_m, torch.full_like(below_m, W))
+    under = (below_m - W).clamp(min=0)
+    moved = (rpw != torch.arange(W, device=rpw.device)).sum(1)
+    per = (16 * nbw * win + 8 * nbw * under + 16 * (r_f - r_in)
+           + 8 * (w_pad - nbw) * moved + 9
+           + (4 * W if w_pad > nbw else 0))
+    nbytes = int(torch.where(hit, per, 1).sum())
+    return {"bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bytes": nbytes}
+
+
+def phase_commit_kernel(seed: int) -> dict:
+    """The commit's kernel against its plain version word for word on what
+    the sweep hands it at the cells' shapes (one plan each), then the
+    wrapper's time there (median of 11 CUDA-event runs on the same buffers:
+    each call moves the same rows), its device time, the plain version's
+    time and the bytes bound."""
+    name, bad, shapes = "panel_commit_hopper_batched", 0, []
+    fn = hopper_commit.panel_commit_hopper_batched
+    plain = hopper_commit.panel_commit_batched_plain
+    for i, (B, m, n, panel) in enumerate(COMMIT_SHAPES):
+        data = stack_on_card(seed + 950 + (i > 0), B, m, n)
+        ops = capture_panel(data, n, False, panel=panel, need=(name,))[name]
+        del data
+        outs = []
+        for f in (fn, plain):
+            a = [x.clone() if isinstance(x, torch.Tensor) else x for x in ops]
+            f(*a)
+            torch.cuda.synchronize()
+            outs.append([a[k] for k in (0, 1, 2, 4)])
+            del a
+        bad |= int(not all(torch.equal(g, w) for g, w in zip(*outs)))
+        del outs
+        zero_counts()
+        t = time_ms(lambda: fn(*ops))
+        plan = [k.rsplit(".", 1)[1] for k in spans.counts()
+                if k.startswith(f"launch.{name}.")]
+        dev = device_trace(lambda: fn(*ops), calls=11)
+        tp = time_ms(lambda: plain(*ops), runs=3, warmup=1)
+        shapes.append({"batch": B, "shape": [m, n], "panel": panel + 1,
+                       "window": ops[6].shape[1], "plan": plan,
+                       "ms": t["median"], "ms_min": t["min"],
+                       "ms_max": t["max"], "runs": t["runs"],
+                       "device_ms": dev["device_ms"],
+                       "device_ms_by_kernel": dev["device_ms_by_kernel"],
+                       "plain_ms": tp["median"], **commit_bound(ops)})
+        del ops
+    check(bad == 0, f"{name} disagrees with its plain version")
+    report = {name: kernel_entry(name, bad, shapes[0],
+                                 device_ms=shapes[0]["device_ms"],
+                                 timed_at=list(COMMIT_SHAPES[0]),
+                                 shapes=shapes)}
+    emit("kernels_commit", kernels=list(report.values()))
     return report
 
 
@@ -2434,7 +2517,7 @@ def phase_dist_gloo_4rank(seed: int) -> dict:
 # ------------------------------------------------------ the batched path ---
 
 BATCHED = ("panel_loop_hopper_batched", "panel_post_hopper_batched",
-           "gf2_schur_update_batched_hopper")
+           "gf2_schur_update_batched_hopper", "panel_commit_hopper_batched")
 # no single PyTorch call computes a packed GF(2) product, a masked in-place
 # update, a pivot loop or the fused elimination
 NO_LIBRARY = ("no PyTorch call computes this function: a packed GF(2) "
@@ -2790,7 +2873,8 @@ def phase_batched_rank_nist(seed: int) -> dict:
           and launched["panel_post_hopper_batched"] == 1
           and launched["gf2_schur_update_batched_hopper"] == 0
           and launched["unit_tri_inv_hopper"] == 0       # T in the operands
-          and launched["post_operands_hopper"] == 1,     # a warp a matrix
+          and launched["post_operands_hopper"] == 1      # a warp a matrix
+          and launched["panel_commit_hopper_batched"] == 1,
           f"rank_batched 32x32 launched {batch_counts()}")
     check(syncs == 1 and misses == 0, f"{syncs} read-backs, {misses} fallbacks")
     kinds = panel_kinds()
@@ -3419,6 +3503,7 @@ def main() -> int:
         report.update(phase_post_kernel(rng))
         report.update(phase_trinv_kernel(rng))
         report.update(phase_operands_kernel(rng))
+        report.update(phase_commit_kernel(seed))
         report.update(phase_batched_kernels(seed))
         launches = {name: 0 for name in KERNELS}
         for got in (phase_mul_4096(seed), phase_mul_routes(seed),

@@ -59,10 +59,12 @@ from ..models import batched as batched_mod
 MCELIECE = (256, 768, 3488)
 NIST = (1 << 20, 32)
 ISD = (1024, 768)               # Prange: the information set H_I, n - k = 768
-# call of each wrapper that belongs to panel t: one pivot loop and one post
-# a panel; two Schur calls a panel (the U rows, then the trailing update)
+# call of each wrapper that belongs to panel t: one pivot loop, one post and
+# one commit a panel; two Schur calls a panel (the U rows, then the trailing
+# update)
 _CALLS_A_PANEL = {"panel_loop_hopper_batched": (1, 0),
                   "panel_post_hopper_batched": (1, 0),
+                  "panel_commit_hopper_batched": (1, 0),
                   "gf2_schur_update_batched_hopper": (2, 1)}
 
 
@@ -79,14 +81,15 @@ def stack(seed: int, B: int, rows: int, cols: int) -> torch.Tensor:
 
 def capture_panel(data, ncols: int, pres: bool, panel: int = 0,
                   need=tuple(_CALLS_A_PANEL), **kw) -> dict:
-    """The arguments the batched sweep hands each batched kernel's wrapper on
-    panel ``panel`` (the trailing update's, for the Schur kernel), cloned as
-    they are handed over; ``kw`` goes to ``block_factor_batched``.  The
-    wrappers are replaced by recorders in ``models/batched.py`` for one
-    sweep.  Raises if the sweep did not reach each wrapper named in ``need``
-    on that panel (a sweep of one panel has no trailing update)."""
+    """The arguments the batched sweep hands each batched kernel's wrapper
+    named in ``need`` on panel ``panel`` (the trailing update's, for the
+    Schur kernel), cloned as they are handed over; ``kw`` goes to
+    ``block_factor_batched``.  Those wrappers are replaced by recorders in
+    ``models/batched.py`` for one sweep.  Raises if the sweep did not reach
+    each of them on that panel (a sweep of one panel has no trailing
+    update)."""
     seen = {}
-    real = {name: getattr(batched_mod, name) for name in _CALLS_A_PANEL}
+    real = {name: getattr(batched_mod, name) for name in need}
 
     def recorder(name):
         per, off = _CALLS_A_PANEL[name]

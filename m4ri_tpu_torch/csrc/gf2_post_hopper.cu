@@ -45,6 +45,8 @@
 // card by a first launch, prefix_sum_kernel), a binary search an item;
 // nothing is read back.  The single call is the batch of one, its tile range
 // known on the host.
+// The batched sweep's commit of a panel (commit_warp_kernel,
+// commit_block_kernel) sits at the end of this file: it reads v and lam.
 #include <algorithm>
 
 #include "gf2_tile.cuh"
@@ -454,4 +456,233 @@ extern "C" int gf2_panel_post_pack_launch(
          nullptr, nullptr, 0, false, static_cast<unsigned char*>(miss), 0,
          nb / 32, 0, 1, 0, nullptr, nullptr, true};
   return static_cast<int>(launch_pack(a, static_cast<cudaStream_t>(stream)));
+}
+
+// ---- the batched sweep's commit of a panel ---------------------------------
+//
+// Replaces no TPU kernel: the JAX package commits a panel with
+// dynamic_update_slices in the graph of its sweep (m4ri_tpu/models/ple.py,
+// _block_factor_impl); the port's batched sweep ran it as about 18 PyTorch
+// operations a panel (gathers and scatters through int64 [B, W] indices, a
+// copy of the panel words of every padded row), which
+// ops/hopper_commit.py keeps as panel_commit_batched_plain.  It lives here
+// because it reads the elimination's outputs v and lam.  For each element e
+// that did not miss its window (miss[e] == 0), with r0 = r_in[e]:
+//   * window row i (row r0 + i of A) takes, on every word outside the panel,
+//     the words of row r0 + rpw[e, i] (the window's row permutation); a row
+//     with rpw[e, i] == i is neither read nor written there;
+//   * A's panel words of the rows in [r0, m): ALw's panel words at the
+//     window's rows, v below it.  Above r0 the elimination passed X through
+//     (v = X), and rows past m are zero padding that no step changes: no
+//     write there;
+//   * lam's window rows below m take ALw's L words;
+//   * P[e, r0 + s] = r0 + p_f[e, s] and Q[e, r0 + s] = qoff + q_f[e, s] for
+//     s < r_f[e] - r0, and no other slot.
+// An element that missed is left alone: the sweep redoes it at full height.
+//
+// What bounds it on an H100: bytes, each word read once and written once.
+// 976,000 x 32^2 (nist_sp800_22.rank): ALw's 32 rows in (256 B an element),
+// A's and lam's 32 rows out (256 B), p_f / q_f in and P / Q out at 32 slots
+// (512 B), about 1.0 GB or 0.30 ms at 3.35 TB/s.  1024 x 768 x 3488, nb =
+// 512 (mceliece348864's first panel): the moved rows' 96 words outside the
+// panel in and out (at most 226 MB each way), ALw's panel and L words in and
+// A's and lam's out (about 150 MB), v's 192 rows below the window (25 MB
+// each way), about 0.19 ms; a panel where every rank has reached m (panels
+// 3-7) writes nothing.  Two plans, chosen on the host from the shape
+// (ops/hopper_commit.py::commit_plan):
+//   * warp: no word outside the panel (one panel, w_pad == nbw) and a small
+//     element (m nbw <= 1024 words): a warp an element, eight a block, the
+//     lanes over the element's (row, word) pairs, so every access of the
+//     warp is one contiguous run;
+//   * block: a block an (element, chunk of cw word columns) over the window,
+//     the chunk's moved rows staged in shared memory (W x cw words: 18 KB at
+//     W = 576, cw = 8) so the permutation needs no second buffer in device
+//     memory, then a block an (element, tile of rows) for v's rows below the
+//     window; 16-byte accesses where rows, panel and chunks line up.
+// The batch is folded into grid x (976,000 elements a launch).
+namespace gf2 {
+namespace commit {
+
+constexpr int WARPS = 8;        // elements a block, warp plan
+constexpr int THREADS = 256;    // block plan
+
+struct Args {
+  uint32_t* a; long a_el; int w_pad;             // A [B, m_pad, w_pad]
+  int* p; long p_el; int* q; long q_el;          // P [B, m_pad], Q [B, n_pad]
+  const uint32_t* v; uint32_t* lam; long v_el;   // v, lam [B, m_pad, nbw]
+  const uint32_t* al;                            // ALw [B, W, 2 nbw]
+  const int* rpw; const int* pf; const int* qf;  // [B, W], [B, nb], [B, nb]
+  const int* rf; const int* rin;                 // [B]
+  const unsigned char* miss;                     // [B] bytes
+  long batch; int W, nb, nbw, c0w, qoff, m;
+  int cw, chunks, below_rows, below_tiles;       // the block plan's items
+};
+
+// P and Q at the element's pivot slots s < k, threads t, t + step, ...
+__device__ __forceinline__ void slots(const Args& a, long e, int r0, int k,
+                                      int t, int step) {
+  int* p = a.p + e * a.p_el + r0;
+  int* q = a.q + e * a.q_el + r0;
+  const int* pf = a.pf + e * a.nb;
+  const int* qf = a.qf + e * a.nb;
+  for (int s = t; s < k; s += step) {
+    p[s] = r0 + __ldg(pf + s);
+    q[s] = a.qoff + __ldg(qf + s);
+  }
+}
+
+__global__ void __launch_bounds__(32 * WARPS) commit_warp_kernel(Args a) {
+  const long e = (long)blockIdx.x * WARPS + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (e >= a.batch || a.miss[e]) return;
+  const int r0 = __ldg(a.rin + e), nbw = a.nbw;
+  slots(a, e, r0, __ldg(a.rf + e) - r0, lane, 32);
+  // rows [r0, m), row i of the window first
+  uint32_t* A = a.a + e * a.a_el + (long)r0 * a.w_pad + a.c0w;
+  uint32_t* lam = a.lam + e * a.v_el + (long)r0 * nbw;
+  const uint32_t* v = a.v + e * a.v_el + (long)r0 * nbw;
+  const uint32_t* al = a.al + e * (long)a.W * 2 * nbw;
+  const long items = (long)max(a.m - r0, 0) * nbw;
+  for (long it = lane; it < items; it += 32) {
+    const long i = it / nbw;
+    const int w = (int)(it - i * nbw);
+    if (i < a.W) {
+      A[i * a.w_pad + w] = __ldg(al + i * 2 * nbw + w);
+      lam[i * nbw + w] = __ldg(al + i * 2 * nbw + nbw + w);
+    } else {
+      A[i * a.w_pad + w] = __ldg(v + i * nbw + w);
+    }
+  }
+}
+
+template <int V> struct Vec { using T = uint32_t; };
+template <> struct Vec<4> { using T = uint4; };
+
+template <int V>
+__global__ void __launch_bounds__(THREADS) commit_block_kernel(Args a) {
+  using T = typename Vec<V>::T;
+  extern __shared__ __align__(16) uint32_t stage[];
+  const long per = a.chunks + a.below_tiles;
+  const long e = blockIdx.x / per;
+  const int item = (int)(blockIdx.x - e * per);
+  if (a.miss[e]) return;
+  const int r0 = __ldg(a.rin + e), nbw = a.nbw, W = a.W;
+  if (item >= a.chunks) {
+    // the panel words of a tile of the rows in [r0 + W, m), from v
+    const long lo = (long)r0 + W + (long)(item - a.chunks) * a.below_rows;
+    const long hi = min((long)a.m, lo + a.below_rows);
+    const int nv = nbw / V;
+    const long n = (hi - lo) * nv;
+    uint32_t* A = a.a + e * a.a_el + a.c0w;
+    const uint32_t* v = a.v + e * a.v_el;
+    for (long it = threadIdx.x; it < n; it += THREADS) {
+      const long row = lo + it / nv;
+      const int w = (int)(it % nv) * V;
+      *reinterpret_cast<T*>(A + row * a.w_pad + w) =
+          __ldg(reinterpret_cast<const T*>(v + row * nbw + w));
+    }
+    return;
+  }
+  if (item == 0) slots(a, e, r0, __ldg(a.rf + e) - r0, threadIdx.x, THREADS);
+  // words [w0, w1) of the window's rows; the panel is [p0, p1)
+  const int w0 = item * a.cw, w1 = min(w0 + a.cw, a.w_pad);
+  const int p0 = a.c0w, p1 = a.c0w + nbw;
+  const int nv = (w1 - w0) / V, n = W * nv;
+  uint32_t* A = a.a + e * a.a_el + (long)r0 * a.w_pad;
+  const int* rp = a.rpw + e * W;
+  if (w0 < p0 || w1 > p1) {
+    // the moved rows' words outside the panel, staged: every source is read
+    // before any row of the chunk is written
+    for (int it = threadIdx.x; it < n; it += THREADS) {
+      const int i = it / nv, w = w0 + (it - i * nv) * V;
+      const int src = __ldg(rp + i);
+      if (src != i && (w < p0 || w >= p1))
+        reinterpret_cast<T*>(stage)[it] =
+            *reinterpret_cast<const T*>(A + (long)src * a.w_pad + w);
+    }
+    __syncthreads();
+  }
+  const uint32_t* al = a.al + e * (long)W * 2 * nbw;
+  uint32_t* lam = a.lam + e * a.v_el + (long)r0 * nbw;
+  const int below_m = a.m - r0;              // window rows below m
+  for (int it = threadIdx.x; it < n; it += THREADS) {
+    const int i = it / nv, w = w0 + (it - i * nv) * V;
+    if (w >= p0 && w < p1) {
+      if (i < below_m) {
+        const long s = (long)i * 2 * nbw + (w - p0);
+        *reinterpret_cast<T*>(A + (long)i * a.w_pad + w) =
+            __ldg(reinterpret_cast<const T*>(al + s));
+        *reinterpret_cast<T*>(lam + (long)i * nbw + (w - p0)) =
+            __ldg(reinterpret_cast<const T*>(al + s + nbw));
+      }
+    } else if (__ldg(rp + i) != i) {
+      *reinterpret_cast<T*>(A + (long)i * a.w_pad + w) =
+          reinterpret_cast<const T*>(stage)[it];
+    }
+  }
+}
+
+constexpr int SMEM_MAX = 227 * 1024;
+
+template <int V>
+inline cudaError_t launch_block(const Args& a, long blocks, cudaStream_t st) {
+  const int smem = 4 * a.W * a.cw;
+  if (smem > SMEM_MAX) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = allow_smem(commit_block_kernel<V>, smem);
+    if (err != cudaSuccess) return err;
+  }
+  commit_block_kernel<V><<<(unsigned)blocks, THREADS, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace commit
+}  // namespace gf2
+
+// The batched commit of panel t, in place on A, P, Q and lam (see above).
+// a: [B, m_pad, w_pad] words; p: [B, m_pad], q: [B, n_pad] ints; v, lam:
+// [B, m_pad, nbw] words; al: [B, W, 2 nbw] words; rpw: [B, W], pf, qf: [B,
+// nb], rf, rin: [B] ints; miss: [B] bytes; every array contiguous.  plan 0:
+// the warp plan (w_pad == nbw); 1: the block plan with chunks of cw words
+// and tiles of below_rows rows.  Returns cudaGetLastError().
+extern "C" int gf2_panel_commit_batched_launch(
+    void* a, void* p, void* q, const void* v, void* lam, const void* al,
+    const void* rpw, const void* pf, const void* qf, const void* rf,
+    const void* rin, const void* miss, long batch, int m_pad, int w_pad,
+    int n_pad, int W, int nbw, int t, int m, int plan, int cw,
+    int below_rows, void* stream) {
+  using namespace gf2;
+  using namespace gf2::commit;
+  using gf2::post::is16;
+  const int nb = nbw * 32;
+  if (batch < 1 || nbw < 1 || W < nb || m < 0 || m > m_pad ||
+      (long)(t + 1) * nbw > w_pad || (long)(t + 1) * nb > n_pad ||
+      (plan == 0 && w_pad != nbw) ||
+      (plan == 1 && (cw < 1 || below_rows < 1)) || plan < 0 || plan > 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args args{static_cast<uint32_t*>(a), (long)m_pad * w_pad, w_pad,
+            static_cast<int*>(p), m_pad, static_cast<int*>(q), n_pad,
+            static_cast<const uint32_t*>(v), static_cast<uint32_t*>(lam),
+            (long)m_pad * nbw, static_cast<const uint32_t*>(al),
+            static_cast<const int*>(rpw), static_cast<const int*>(pf),
+            static_cast<const int*>(qf), static_cast<const int*>(rf),
+            static_cast<const int*>(rin),
+            static_cast<const unsigned char*>(miss), batch, W, nb, nbw,
+            t * nbw, t * nb, m, cw, 0, below_rows, 0};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (plan == 0) {
+    const long blocks = (batch + WARPS - 1) / WARPS;
+    if (blocks > 0x7fffffffL) return static_cast<int>(cudaErrorInvalidValue);
+    commit_warp_kernel<<<(unsigned)blocks, 32 * WARPS, 0, st>>>(args);
+    return static_cast<int>(cudaGetLastError());
+  }
+  args.chunks = (w_pad + cw - 1) / cw;
+  args.below_tiles = (std::max(m - W, 0) + below_rows - 1) / below_rows;
+  const long blocks = batch * (args.chunks + args.below_tiles);
+  if (blocks > 0x7fffffffL) return static_cast<int>(cudaErrorInvalidValue);
+  // 16-byte accesses: rows, the panel, the chunks and every base in step
+  const bool vec = nbw % 4 == 0 && w_pad % 4 == 0 && cw % 4 == 0 &&
+                   is16(a) && is16(v) && is16(lam) && is16(al);
+  return static_cast<int>(vec ? launch_block<4>(args, blocks, st)
+                              : launch_block<1>(args, blocks, st));
 }

@@ -17,10 +17,12 @@ Python ints.  So the batched sweep here is ``_block_factor_impl``
 
 - every per-matrix offset (the rank at the panel's entry, the window's base,
   the rank after it) is an int32 ``[B]`` tensor on the device;
-- the W-row windows at ``r_in[b]`` are gathered through one index tensor, and
-  the window's row permutation, the panel write-back and the P/Q commit go
-  back with scatters masked by ``slot < rank_panel[b]`` (the form of the JAX
-  package's ``dynamic_update_slice``);
+- the W-row windows at ``r_in[b]`` are gathered through one index tensor;
+  the window's row permutation, the panel write-back and the P/Q records at
+  the slots ``s < rank_panel[b]`` (the JAX package's
+  ``dynamic_update_slice``s) are one wrapper call a panel
+  (``panel_commit_hopper_batched``), which reads ``miss`` on the device and
+  leaves the elements that missed to their full-height redo;
 - the elimination's operands (U_piv^{-1} among them) are one wrapper call
   a panel for the batch (``post_operands_hopper``), and L11^{-1} for the U
   rows one batched launch on packed words (``unit_tri_inv_hopper``);
@@ -49,6 +51,8 @@ from ..core.bitmatrix import padding_words, width_for
 from ..core.permutation import (_doubling_steps,
                                 apply_p_right_trans_tri_batched)
 from ..core.transpose import transpose_words
+from ..ops.hopper_commit import (_rows, panel_commit_batched_plain,
+                                 panel_commit_hopper_batched)
 from ..ops.hopper_mul import gf2_mul_plain
 from ..ops.hopper_panel import panel_loop_batched_plain, panel_loop_hopper_batched
 from ..ops.hopper_post import panel_post_batched_plain, panel_post_hopper_batched
@@ -94,16 +98,6 @@ def mul_packed_batched(a: torch.Tensor, b: torch.Tensor,
     return gf2_schur_update_batched_hopper(c, a, b, 0, 0)
 
 
-def _rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """x[b, idx[b, i]] for every b, i: rows gathered a batch at a time."""
-    return x.gather(1, idx[:, :, None].expand(-1, -1, x.shape[2]))
-
-
-def _put_rows(x: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor) -> None:
-    """x[b, idx[b, i]] = rows[b, i], in place (idx distinct within b)."""
-    x.scatter_(1, idx[:, :, None].expand(-1, -1, x.shape[2]), rows)
-
-
 def _block_factor_batched_impl(data: torch.Tensor, m: int, n: int, nb: int,
                                preserve_l: bool, search_window: int,
                                window: int, engine: str):
@@ -140,6 +134,8 @@ def _sweep(data: torch.Tensor, m: int, n: int, nb: int, preserve_l: bool,
     wv = torch.arange(W, dtype=torch.int32, device=dev)
     loop = panel_loop_hopper_batched if hopper else panel_loop_batched_plain
     post = panel_post_hopper_batched if hopper else panel_post_batched_plain
+    commit = (panel_commit_hopper_batched if hopper
+              else panel_commit_batched_plain)
     schur = (gf2_schur_update_batched_hopper if hopper
              else lambda c, lp, up, r0, c0w: gf2_schur_update_plain(c, lp, up))
 
@@ -192,41 +188,24 @@ def _sweep(data: torch.Tensor, m: int, n: int, nb: int, preserve_l: bool,
                     spans.count("readback.block_factor_batched")
                     for i, ri in redo:
                         spans.count("fallback.block_factor_batched")
-                        fallbacks.append((i, run_panel_loop(
+                        fallbacks.append((i, ri, run_panel_loop(
                             Xw[i], ri, 0, t, m, nb, preserve_l, 0, engine)))
 
             # ---- commit: the window path for every element that did not
-            # miss (an element that did keeps its rows here and is redone
-            # below) ----
+            # miss, one call; an element that did is redone at full height
+            # after it ----
             with spans.span("panel.commit"):
-                rpw = torch.where(miss[:, None], wv[None, :], rpw).long()
-                _put_rows(A, win, _rows(_rows(A, win), rpw))
-                panel_full, Lpw = vw_full, lamw_full
-                _put_rows(panel_full, win, ALw[:, :, :nbw])
-                _put_rows(Lpw, win, ALw[:, :, nbw:])
-                p_pan = r_in[:, None] + p_f
-                q_pan = t * nb + q_f
-                r = r_f.clone() if fallbacks else r_f
-                for i, (AL, rp, r_s, _, p_i, q_i) in fallbacks:
-                    A[i] = A[i][rp.long()]
-                    panel_full[i] = AL[:, :nbw]
-                    Lpw[i] = AL[:, nbw:]
-                    p_pan[i] = p_i
-                    q_pan[i] = q_i
-                    r[i] = r_s
-                rank_panel = r - r_in
-                keep = slotv[None, :] < rank_panel[:, None]    # [B, nb]
-                sl = win[:, :nb]
-                P.scatter_(1, sl, torch.where(keep, p_pan, P.gather(1, sl)))
-                Q.scatter_(1, sl, torch.where(keep, q_pan, Q.gather(1, sl)))
-                A[:, :, c0w : c0w + nbw] = panel_full
+                r = _commit(commit, A, P, Q, vw_full, lamw_full, ALw, rpw,
+                            p_f, q_f, r_f, r_in, miss, fallbacks, t, nb, m)
 
             if t == n_panels - 1:
                 break                   # no trailing column is left to update
             # ---- U rows: S_b * A_b[r_b : r_b + nb], words from c0n on ----
             with spans.span("panel.u_rows"):
+                sl = win[:, :nb]
+                keep = slotv[None, :] < (r - r_in)[:, None]    # [B, nb]
                 c0n = (t + 1) * nbw
-                s_pk = inverse(_rows(Lpw, sl), False)   # L11^{-1}, packed
+                s_pk = inverse(_rows(lamw_full, sl), False)  # L11^{-1}, packed
                 a_block = _rows(A, sl)
                 a_block[:, :, :c0n] = 0
                 up = schur(torch.zeros_like(a_block), s_pk, a_block, 0,
@@ -236,9 +215,36 @@ def _sweep(data: torch.Tensor, m: int, n: int, nb: int, preserve_l: bool,
             # to m (the padding rows below stay zero: no launch touches
             # them) ----
             with spans.span("panel.schur"):
-                schur(A[:, :m], Lpw[:, :m], up, r_in, c0n)
+                schur(A[:, :m], lamw_full[:, :m], up, r_in, c0n)
     return (A[:, :m, : data.shape[2]].contiguous(), P[:, :m].contiguous(),
             Q[:, :n].contiguous(), r)
+
+
+def _commit(commit, A, P, Q, vw_full, lamw_full, ALw, rpw, p_f, q_f, r_f,
+            r_in, miss, fallbacks, t: int, nb: int, m: int) -> torch.Tensor:
+    """Panel t's commit, in place on A, P, Q and lamw_full: ``commit`` (the
+    kernel's wrapper or its plain version) for every element that did not
+    miss, then each element redone at full height, ``(i, r_in[i], the
+    pivot loop's outputs)`` of ``fallbacks``: its rows permuted, its panel
+    and L words and its P and Q at the slots below its rank.  Returns the
+    rank after the panel."""
+    commit(A, P, Q, vw_full, lamw_full, ALw, rpw, p_f, q_f, r_f, r_in, miss,
+           t, nb, m)
+    if not fallbacks:
+        return r_f
+    nbw = nb // WORD_BITS
+    c0w = t * nbw
+    slotv = torch.arange(nb, dtype=torch.int32, device=A.device)
+    r = r_f.clone()
+    for i, ri, (AL, rp, r_s, _, p_i, q_i) in fallbacks:
+        A[i] = A[i][rp.long()]
+        A[i, :, c0w : c0w + nbw] = AL[:, :nbw]
+        lamw_full[i] = AL[:, nbw:]
+        keep = slotv < r_s - ri
+        P[i, ri : ri + nb] = torch.where(keep, p_i, P[i, ri : ri + nb])
+        Q[i, ri : ri + nb] = torch.where(keep, q_i, Q[i, ri : ri + nb])
+        r[i] = r_s
+    return r
 
 
 def block_factor_batched(data: torch.Tensor, ncols: int, preserve_l: bool,

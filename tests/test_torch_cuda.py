@@ -1223,3 +1223,82 @@ def test_sweeps_through_the_inverse_equal_the_plain_engine(card):
         want = block_factor_batched(data, 3488, pres, engine="plain")
         for g, w in zip(got, want):
             assert torch.equal(g, w)
+
+
+# ---- the batched sweep's commit (ops/hopper_commit.py) -----------------------
+
+def _commit_ops(data, n, pres, panel=0, **kw):
+    """What the batched sweep hands the commit's wrapper on ``panel``."""
+    from m4ri_tpu_torch.benches.split_batched import capture_panel
+    name = "panel_commit_hopper_batched"
+    return capture_panel(data, n, pres, panel=panel, need=(name,), **kw)[name]
+
+
+def _committed(fn, ops):
+    """A, P, Q and lam after ``fn`` on a copy of ``ops``."""
+    a = [x.clone() if isinstance(x, torch.Tensor) else x for x in ops]
+    fn(*a)
+    torch.cuda.synchronize()
+    return [a[k] for k in (0, 1, 2, 4)]
+
+
+@pytest.mark.parametrize("case", ["nist_65536", "keygen_panel1",
+                                  "keygen_panel2", "keygen_panel3",
+                                  "misses", "search_window"])
+def test_commit_kernel_equals_plain(card, case):
+    """The kernel against its plain version word for word on whole buffers
+    (the padding rows included) on what the sweep hands it: 65,536 NIST 32^2
+    panels (the warp plan), mceliece348864's panels 1-3 at a batch of 64
+    (the block plan; panel 3 with every rank at m), a batch where three
+    elements miss (left alone by the kernel) and the restricted search.  Two
+    calls on copies of the same input agree (no stale buffer)."""
+    from m4ri_tpu_torch.ops import hopper_commit
+    if case == "nist_65536":
+        ops, plan = _commit_ops(_card_stack(220, 65_536, 32, 32, card), 32,
+                                False), "warp"
+    elif case.startswith("keygen"):
+        ops = _commit_ops(_card_stack(221, 64, 768, 3488, card), 3488, False,
+                          panel=int(case[-1]) - 1)
+        plan = "block"
+    elif case == "misses":
+        data = _stack(222, 5, 1000, 700, card)
+        data[::2, 100:600] = 0
+        ops, plan = _commit_ops(data, 700, True, panel=1, nb=64), "block"
+        assert 0 < int(ops[11].sum()) < 5
+    else:
+        ops, plan = _commit_ops(_card_stack(223, 64, 768, 3488, card), 3488,
+                                False, search_window=42), "block"
+    key = f"launch.panel_commit_hopper_batched.{plan}"
+    before = counts().get(key, 0)
+    got = _committed(hopper_commit.panel_commit_hopper_batched, ops)
+    assert counts().get(key, 0) == before + 1
+    again = _committed(hopper_commit.panel_commit_hopper_batched, ops)
+    want = _committed(hopper_commit.panel_commit_batched_plain, ops)
+    for g, a, w, name in zip(got, again, want, ("A", "P", "Q", "lam")):
+        assert torch.equal(g, w), (case, name)
+        assert torch.equal(a, g), (case, name)
+
+
+@pytest.mark.parametrize("B,m,n,panels", [(4096, 32, 32, 1),
+                                          (16, 768, 3488, 7)])
+def test_commit_one_launch_a_panel_and_no_wait(card, B, m, n, panels):
+    """One commit launch a panel of every batched sweep, and the call waits
+    for the card only at the sweep's one read-back a panel (PyTorch's sync
+    debug mode), as before the commit was a kernel."""
+    import warnings
+
+    import m4ri_tpu_torch as mt
+    data = _card_stack(224, B, m, n, card)
+    mt.rank_batched(data, n)                            # kernels built
+    torch.cuda.synchronize()
+    key = "launch.panel_commit_hopper_batched"
+    before = counts().get(key, 0)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            mt.rank_batched(data, n)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert counts().get(key, 0) - before == panels
+    assert _sync_waits(caught) == panels

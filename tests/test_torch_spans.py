@@ -203,6 +203,7 @@ def test_kernel_spans_carry_host_operands(single):
         want = {("panel.loop", "kernel.panel_loop_hopper_batched"),
                 ("panel.operands", "kernel.post_operands_hopper"),
                 ("panel.post", "kernel.panel_post_hopper_batched"),
+                ("panel.commit", "kernel.panel_commit_hopper_batched"),
                 ("panel.u_rows", "kernel.unit_tri_inv_hopper"),
                 ("panel.u_rows", "kernel.gf2_schur_update_batched_hopper"),
                 ("panel.schur", "kernel.gf2_schur_update_batched_hopper")}
@@ -228,6 +229,26 @@ def test_kernel_spans_carry_host_operands(single):
                  if s.name == "kernel.gf2_schur_update_hopper"]
         assert schur[0] == dict(m=256, nw=5, k=32, r0=0, c0w=1,
                                 col_tile_skip=0)
+
+
+@pytest.mark.parametrize("kw", [dict(nb=32), dict(nb=32, search_window=12)],
+                         ids=["miss_check", "search_window"])
+def test_commit_kernel_span_under_every_panel_commit(kw):
+    """One ``kernel.panel_commit_hopper_batched`` span inside each
+    ``panel.commit`` of the batched sweep, with the batch, the window, the
+    padded width and the plan; the last panel's commit included."""
+    h = _words(15, 96, 200, batch=3)
+    got = _recorded(lambda: batched.block_factor_batched(
+        h, 200, True, engine="hopper", **kw))
+    by_id = {s.id: s for s in got}
+    commits = [s for s in got if s.name == "panel.commit"]
+    kernels = [s for s in got if s.name == "kernel.panel_commit_hopper_batched"]
+    assert len(commits) == 7 and len(kernels) == 7
+    assert sorted(by_id[s.parent].id for s in kernels) == \
+        sorted(s.id for s in commits)
+    # the window: nb plus the 64-row search margin, 96 rows
+    assert {tuple(sorted(s.attrs.items())) for s in kernels} == {
+        (("W", 96), ("batch", 3), ("plan", "block"), ("w_pad", 7))}
 
 
 # ---- on the card ------------------------------------------------------------
@@ -333,4 +354,5 @@ def test_rank_batched_kernel_spans_nest_in_its_phases(card):
     assert {e for e in edges if e[1].startswith("kernel.")} == {
         ("panel.loop", "kernel.panel_loop_hopper_batched"),
         ("panel.operands", "kernel.post_operands_hopper"),
-        ("panel.post", "kernel.panel_post_hopper_batched")}
+        ("panel.post", "kernel.panel_post_hopper_batched"),
+        ("panel.commit", "kernel.panel_commit_hopper_batched")}
